@@ -3,21 +3,30 @@
     python3 chip_smoke.py                # the full run: 100 KITTI-geometry frames
     python3 chip_smoke.py --profile 20   # also profile 20 more frames (torch.profiler)
 
-Phases, each printing one line and stopping the run with a non-zero exit on
+Phases, each printing its lines and stopping the run with a non-zero exit on
 failure:
 
 1. device  — a CUDA device must be present (there is no CPU fallback); prints
              the ``nvidia-smi`` name and power limit.
 2. build   — compiles ``stereoslam_tpu_torch/csrc/lk_level.cu`` for sm_90a.
-3. kernels — each kernel against its plain PyTorch version on the card, at the
-             main path's shapes (400 FAST corners of a 376x1241 frame, the 4
-             pyramid levels; 20 iterations from a zero flow and 10 from a
-             seeded one, eps 0.01), with CUDA-event timings of both.
+3. kernels — at the main path's shapes (400 FAST corners of a 376x1241
+             frame): the per-level entries ``lk_level`` (4 levels, 20
+             iterations from a zero flow and 10 from a seeded one) and
+             ``lk_final_error`` against their plain versions; ``lk_pyramid``
+             against the same call composed of per-level launches (bit for
+             bit) and against ``lk_pyramid_plain`` (tolerances), for the
+             temporal forward+FB, stereo, deep-rescue and border calls; then
+             device times per launch (a CUDA graph of back-to-back launches),
+             each beside its roofline bound, and the time by iteration
+             budget.
 4. main    — ``StereoSlam(cfg, device="cuda", enable_loop=False)`` with inline
              BA over the synthetic KITTI-00-geometry sequence of ``bench.py``
-             Phase A; checks no LOST, the keyframe/landmark counts, the
-             trajectory error against ground truth, and that every tracked
-             frame went through the LK kernel.
+             Phase A; checks no LOST, the keyframe/landmark counts and the
+             trajectory error against ground truth (and that they repeat the
+             port's known run), that every tracked frame went through
+             ``lk_pyramid`` and that no per-level entry was launched.
+5. profile — with ``--profile N``: device busy share, the top kernels, the
+             LK kernels' self device time per launch, host syncs per frame.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last line
 is ``{"ok": true, "device": {...}}``.  Only torch, numpy and the port are
@@ -46,6 +55,9 @@ TOL_FINAL_ERROR = 1e-3
 # not a sample of run-to-run noise.
 MAX_ATE_M = 0.25
 KF_BAND = (8, 30)
+# The run of seed 11 as every version of the port since the fixed-order BA
+# sums has produced it on the card: (keyframes, landmarks, ATE in m).
+EXPECTED_RUN = (15, 850, 0.1161)
 N_FRAMES = 100
 WARMUP = 12
 
@@ -65,19 +77,44 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+def device_ms(fn, launches: int = 200, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: ``launches`` back-to-back calls
+    captured in one CUDA graph, timed by CUDA events around one replay after
+    a warm-up replay.  The graph keeps the host's per-call work (argument
+    checks, allocations, the ctypes call) out of the gaps between kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def eager_ms(fn, launches: int = 200, warmup: int = 3) -> float:
+    """Milliseconds per call of ``launches`` back-to-back eager calls, by CUDA
+    events: what a caller pays when the host, not the device, sets the pace."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def kitti_sequence():
@@ -104,27 +141,177 @@ def kitti_config(seq):
     )
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# the least time a kernel could take is the larger of its bytes over the
+# memory rate and its float32 operations over the FP32 rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+# Float32 operations of the LK arithmetic, counted from the source: a bilinear
+# sample is 13 (two weights, eight products, three sums), a window has 121
+# samples.  One Gauss-Newton iteration: a sample, the residual and two
+# multiply-adds per sample (18), two 31-add sums, about 20 for the update.
+# A level's template: five samples and six gradient-product terms per sample.
+# The final error: one sample, a difference and a sum per sample.
+FLOPS_ITER = 121 * 18 + 2 * 31 + 20
+FLOPS_TEMPLATE = 121 * (5 * 13 + 2 + 6)
+FLOPS_ERROR = 121 * (13 + 2)
+
+
+class Work:
+    """What one LK launch needs for these inputs: the pixels it taps, each
+    read once (a mask per image, so a pixel that two features, levels or
+    passes tap counts once), and its float32 operations, counted from the
+    iterations the data runs."""
+
+    def __init__(self, K):
+        self.K, self.masks, self.flops = K, {}, 0
+
+    def _mark(self, img, x0, y0, side: int) -> None:
+        """Set the pixels of ``side`` x ``side`` boxes at integer origins,
+        clamped to the image (a clamped tap reads an edge pixel)."""
+        mask = self.masks.setdefault(img.data_ptr(), torch.zeros(img.shape, dtype=torch.bool,
+                                                                 device=img.device))
+        h, w = mask.shape
+        ar = torch.arange(side, device=mask.device)
+        ys = (y0[:, None] + ar).clamp(0, h - 1)
+        xs = (x0[:, None] + ar).clamp(0, w - 1)
+        mask[ys[:, :, None].expand(-1, -1, side), xs[:, None, :].expand(-1, side, -1)] = True
+
+    def template(self, img, pts) -> None:
+        """The 14x14 box a template and its +-0.5 px gradients tap."""
+        org, _ = self.K.window_origins(pts, torch.zeros_like(pts))
+        self._mark(img, org[:, 0], org[:, 1], self.K.window_plan().template_side)
+
+    def taps(self, img, at) -> None:
+        """The 12x12 bilinear footprints of windows sampled at ``at``."""
+        base = torch.stack([self.K._split(at[:, i])[0] for i in (0, 1)], dim=-1)
+        base = base - self.K.WINDOW // 2
+        self._mark(img, base[:, 0], base[:, 1], self.K.WINDOW + 1)
+
+    def level(self, prev, nxt, pts, flow, iters: int, eps: float):
+        """One level: the templates and the taps of every iteration that
+        runs.  Returns the level's flow."""
+        self.template(prev, pts)
+        self.flops += pts.shape[0] * FLOPS_TEMPLATE
+
+        def visit(f, active):
+            self.flops += int(active.sum()) * FLOPS_ITER
+            self.taps(nxt, (pts + f)[active])
+
+        flow, _ = self.K.lk_level_plain(prev, nxt, pts, flow, iters, eps, visit=visit)
+        return flow
+
+    def nbytes(self) -> int:
+        return 4 * sum(int(m.sum()) for m in self.masks.values())
+
+
+def lk_work(K, pa, pb, pts, init, iters: int, eps: float, fb: float = 0.0, fb_iters: int = 0):
+    """Bytes and float32 operations of one pyramidal-LK call for these
+    inputs: the pixels it taps, the points read and the results written
+    once; the iterations the data runs."""
+    work = Work(K)
+
+    def one_pass(pyr_a, pyr_b, p, seed, n_iters):
+        flow = (seed - p) / float(2 ** (len(pyr_a) - 1))
+        for lvl in range(len(pyr_a) - 1, -1, -1):
+            flow = work.level(pyr_a[lvl], pyr_b[lvl], p / float(2 ** lvl), flow, n_iters, eps)
+            if lvl:
+                flow = flow * 2.0
+        work.taps(pyr_b[0], p + flow)  # the final error
+        work.flops += p.shape[0] * FLOPS_ERROR
+        return p + flow
+
+    q = one_pass(pa, pb, pts, init, iters)
+    if fb > 0.0:
+        one_pass(pb, pa, q, q, fb_iters)
+    return work.nbytes() + pts.shape[0] * (16 + 13), work.flops
+
+
+def bound(nbytes: int, flops: int):
+    """(bound_ms, bound_by, description) of the roofline for this work."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    text = (f"{nbytes / 1e6:.3f} MB in {t_bytes * 1e3:.3f} us, {flops / 1e6:.2f} MFLOP in "
+            f"{t_ops * 1e3:.3f} us")
+    return (t_bytes, "bytes", text) if t_bytes >= t_ops else (t_ops, "operations", text)
+
+
+def round_trip_ties(L, pa, pb, pts, res, kw) -> torch.Tensor:
+    """Tracks whose round trip in the per-level composition lies within
+    1e-5 px of the forward-backward threshold: there the kernel's sqrtf and
+    torch.linalg.norm may round to different sides."""
+    nb = kw["fb_levels"] or len(pa)
+    back = L.lk_pyramid_levels(pb[:nb], pa[:nb], res.points, res.points, iters=kw["fb_iters"],
+                               eps=kw["eps"], max_error=kw["max_error"])
+    return (torch.linalg.norm(back.points - pts, dim=-1) - kw["forward_backward"]).abs() < 1e-5
+
+
+def check_pyramid_case(L, name, pa, pb, pts, init, kw) -> float:
+    """lk_pyramid against the composition of per-level kernel launches (bit
+    for bit, status up to round-trip ties) and against lk_pyramid_plain
+    (the per-level tolerances).  Returns the largest |d point| against plain where
+    both keep the track."""
+    got = L.lk_pyramid(pa, pb, pts, init, **kw)
+    ref = L.lk_pyramid_levels(pa, pb, pts, init, **kw)
+    plain = L.lk_pyramid_plain(pa, pb, pts, init, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got.points, ref.points) and torch.equal(got.error, ref.error)
+    differ = got.status != ref.status
+    n_flip = int(differ.sum())
+    if kw["forward_backward"] > 0.0:
+        differ &= ~round_trip_ties(L, pa, pb, pts, ref, kw)
+    agree = (got.status == plain.status).float().mean().item()
+    both = got.status & plain.status
+    d = (got.points - plain.points).norm(dim=1)[both]
+    med, p99 = d.median().item(), d.quantile(0.99).item()
+    print(f"kernels: lk_pyramid {name}: {len(pa)} levels, N={pts.shape[0]}, "
+          f"{int(got.status.sum())} kept; vs per-level launches: points and error "
+          f"{'bit-identical' if same else 'DIFFER'}, {n_flip} status flips "
+          f"({int(differ.sum())} not round-trip ties); vs plain: status agree {agree:.4f}, "
+          f"|dpoint| median {med:.2e} p99 {p99:.2e} px", flush=True)
+    if not same or bool(differ.any()):
+        fail(f"lk_pyramid ({name}) differs from the composition of per-level launches")
+    if not (agree >= TOL_GOOD_AGREE and med < TOL_MEDIAN_PX and p99 < TOL_P99_PX):
+        fail(f"lk_pyramid ({name}) disagrees with lk_pyramid_plain")
+    return (got.points - plain.points).abs()[both].max().item()
+
+
+def border_case(pts, h: int, w: int):
+    """The corners plus points at every edge and far outside, seeded to push
+    their windows past the edges and +-1e4 px outside."""
+    edge = torch.tensor([[0.3, 0.2], [w - 1.2, 2.5], [3.0, h - 1.5], [w - 0.5, h - 0.5],
+                         [-1e4, 50.0], [50.0, 1e4], [1e4, -1e4], [w / 2, h / 2],
+                         [2.0, h / 2], [w - 3.0, h / 2]], device=pts.device)
+    seed = torch.tensor([[-20.0, -20.0], [30.0, 0.0], [0.0, 30.0], [25.0, 25.0], [0.0, 0.0],
+                         [-1e4, 0.0], [1e4, 1e4], [0.0, -1e4], [-11.0, 0.0], [11.5, 3.0]],
+                        device=pts.device)
+    p = torch.cat([pts, edge])
+    return p, p + torch.cat([torch.zeros_like(pts), seed])
+
+
 def phase_kernels(dev, seq, card: str):
+    from stereoslam_tpu_torch.ops import lk as L
     from stereoslam_tpu_torch.ops import lk_level as K
     from stereoslam_tpu_torch.ops.fast import detect_keypoints
     from stereoslam_tpu_torch.ops.image import build_lk_pyramid
 
     cfg = kitti_config(seq)
-    a = torch.from_numpy(seq.left[0].astype(np.uint8)).to(dev).float()
-    b = torch.from_numpy(seq.left[1].astype(np.uint8)).to(dev).float()
+    t = cfg.tracking
+    frame = [torch.from_numpy(img.astype(np.uint8)).to(dev).float()
+             for img in (seq.left[0], seq.left[1], seq.right[0])]
+    a, b, right = frame
     kps = detect_keypoints(a, cfg.features.max_features)
     pts = kps.xy[kps.valid].contiguous()
     if pts.shape[0] != cfg.features.max_features:
         fail(f"expected {cfg.features.max_features} FAST corners, got {pts.shape[0]}")
-    # The main path's calls: forward and stereo from a zero flow with lk_iters
-    # (stereo and deep rescue reach the 4th level), and forward-backward
-    # checks with lk_fb_iters from a non-zero seed, here clamped to 11 px, near
-    # the kernel's 12 px clip.
-    n_lvl = cfg.tracking.lk_stereo_levels
+
+    # Per level: the device code alone against the plain level, from a zero
+    # flow with lk_iters and from a seeded flow (clamped to 11 px, near the
+    # 12 px clip) with lk_fb_iters, at all 4 levels of the stereo pyramid.
+    n_lvl = t.lk_stereo_levels
     pa, pb = build_lk_pyramid(a, n_lvl), build_lk_pyramid(b, n_lvl)
-    iters, eps = cfg.tracking.lk_iters, cfg.tracking.lk_eps
+    iters, eps = t.lk_iters, t.lk_eps
     cases = [(lvl, iters, 0.0) for lvl in range(n_lvl)]
-    cases += [(lvl, cfg.tracking.lk_fb_iters, 4.0) for lvl in range(n_lvl)]
+    cases += [(lvl, t.lk_fb_iters, 4.0) for lvl in range(n_lvl)]
     worst = 0.0
     for lvl, n_it, seed_px in cases:
         p = (pts / 2.0 ** lvl).contiguous()
@@ -143,7 +330,8 @@ def phase_kernels(dev, seq, card: str):
               f"|dflow| median {med:.2e} p99 {p99:.2e} px", flush=True)
         if not (agree >= TOL_GOOD_AGREE and med < TOL_MEDIAN_PX and p99 < TOL_P99_PX):
             fail(f"lk_level disagrees with its plain version at level {lvl}, {n_it} iters")
-    fk, _ = K.lk_level(pa[0], pb[0], pts, torch.zeros_like(pts), iters, eps)
+    z = torch.zeros_like(pts)
+    fk, _ = K.lk_level(pa[0], pb[0], pts, z, iters, eps)
     ek = K.lk_final_error(pa[0], pb[0], pts, fk)
     ep = K.lk_final_error_plain(pa[0], pb[0], pts, fk)
     err_final = (ek - ep).abs().max().item()
@@ -151,28 +339,89 @@ def phase_kernels(dev, seq, card: str):
     if not err_final < TOL_FINAL_ERROR:
         fail("lk_final_error disagrees with its plain version")
 
-    z = torch.zeros_like(pts)
-    t_k = cuda_ms(lambda: K.lk_level(pa[0], pb[0], pts, z, iters, eps))
-    t_p = cuda_ms(lambda: K.lk_level_plain(pa[0], pb[0], pts, z, iters, eps))
-    t_ek = cuda_ms(lambda: K.lk_final_error(pa[0], pb[0], pts, fk))
-    t_ep = cuda_ms(lambda: K.lk_final_error_plain(pa[0], pb[0], pts, fk))
-    print(f"kernels: one level 376x1241 x {pts.shape[0]} features, {iters} iters: kernel "
-          f"{t_k:.4f} ms, plain {t_p:.4f} ms; final error kernel {t_ek:.4f} ms, plain "
-          f"{t_ep:.4f} ms [{card}]", flush=True)
+    # Whole calls, as the main path makes them.
+    lk_kw = dict(window=t.lk_window, iters=iters, eps=eps, max_error=30.0,
+                 forward_backward=t.lk_forward_backward, fb_iters=t.lk_fb_iters,
+                 fb_levels=t.lk_fb_levels)
+    no_fb = dict(lk_kw, forward_backward=0.0)
+    gen = torch.Generator().manual_seed(0)
+    seeded = pts + (torch.rand(pts.shape, generator=gen) * 16.0 - 8.0).to(dev)
+    p3a, p3b = pa[:t.lk_levels], pb[:t.lk_levels]
+    border_pts, border_init = border_case(pts, *a.shape)
+    pyramid_cases = [
+        ("temporal forward+FB, seeds within 8 px", p3a, p3b, pts, seeded, lk_kw),
+        ("stereo left->right, zero seed", pa, build_lk_pyramid(right, n_lvl), pts, pts, no_fb),
+        ("deep rescue", pa, pb, pts, pts, lk_kw),
+        ("border and +-1e4 px outside", p3a, p3b, border_pts, border_init, lk_kw),
+    ]
+    worst_pyr = max(check_pyramid_case(L, *case) for case in pyramid_cases)
+
+    # Device times per call (CUDA graph of back-to-back launches), each
+    # beside its bound for this call's work.
+    t_k = device_ms(lambda: K.lk_level(pa[0], pb[0], pts, z, iters, eps))
+    t_p = device_ms(lambda: K.lk_level_plain(pa[0], pb[0], pts, z, iters, eps), launches=5)
+    t_ek = device_ms(lambda: K.lk_final_error(pa[0], pb[0], pts, fk))
+    t_ep = device_ms(lambda: K.lk_final_error_plain(pa[0], pb[0], pts, fk), launches=20)
+    t_y = device_ms(lambda: L.lk_pyramid(p3a, p3b, pts, seeded, **lk_kw))
+    t_yl = device_ms(lambda: L.lk_pyramid_levels(p3a, p3b, pts, seeded, **lk_kw), launches=20)
+    t_yp = device_ms(lambda: L.lk_pyramid_plain(p3a, p3b, pts, seeded, **lk_kw), launches=2)
+    e_k = eager_ms(lambda: K.lk_level(pa[0], pb[0], pts, z, iters, eps))
+    e_y = eager_ms(lambda: L.lk_pyramid(p3a, p3b, pts, seeded, **lk_kw))
+
+    # A level alone: its pixels, the points and flows in, the flows and good
+    # flags out.  The final error alone: its pixels, the points and flows in,
+    # the errors out; a template sample and a window sample per position.
+    w_k = Work(K)
+    w_k.level(pa[0], pb[0], pts, z, iters, eps)
+    b_k = bound(w_k.nbytes() + pts.shape[0] * 25, w_k.flops)
+    w_ek = Work(K)
+    w_ek.template(pa[0], pts)
+    w_ek.taps(pb[0], pts + fk)
+    b_ek = bound(w_ek.nbytes() + pts.shape[0] * 20, pts.shape[0] * 121 * (2 * 13 + 2))
+    b_y = bound(*lk_work(K, p3a, p3b, pts, seeded, iters, eps, lk_kw["forward_backward"],
+                         lk_kw["fb_iters"]))
+    for name, ms, plain, bnd in (("lk_level (level 0, zero flow, 20 iters)", t_k, t_p, b_k),
+                                 ("lk_final_error (level 0)", t_ek, t_ep, b_ek),
+                                 ("lk_pyramid (3 levels, forward+FB)", t_y, t_yp, b_y)):
+        print(f"kernels: device time {name}: {ms * 1e3:.3f} us per launch, plain {plain:.4f} ms; "
+              f"bound {bnd[0] * 1e3:.3f} us by {bnd[1]} ({bnd[2]}), {bnd[0] / ms:.1%} of it "
+              f"reached [{card}]", flush=True)
+    print(f"kernels: the same forward+FB call composed of per-level launches (lk_pyramid_levels, "
+          f"with its torch glue): {t_yl * 1e3:.3f} us device time per call; eager back-to-back "
+          f"calls: lk_level {e_k * 1e3:.3f} us, lk_pyramid {e_y * 1e3:.3f} us (host-paced)",
+          flush=True)
+
+    # Where a launch's time goes: the iteration budget against the windows'
+    # staging, the templates and the final errors (which run at 0 iterations).
+    budget = [f"{n_it} -> {device_ms(lambda: K.lk_level(pa[0], pb[0], pts, z, n_it, eps)) * 1e3:.3f}"
+              for n_it in (0, 1, 5, 20)]
+    t_y0 = device_ms(lambda: L.lk_pyramid(p3a, p3b, pts, seeded, **dict(lk_kw, iters=0,
+                                                                         fb_iters=0)))
+    print(f"kernels: device us per launch by iteration budget: lk_level level 0 "
+          f"{', '.join(budget)}; lk_pyramid forward+FB at 0 iterations {t_y0 * 1e3:.3f}",
+          flush=True)
+
+    def entry(err, ms, plain, bnd):
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+
     return {
-        "lk_level": {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p},
-        "lk_final_error": {"max_abs_err": err_final, "ms": t_ek, "plain_ms": t_ep},
+        "lk_pyramid": entry(worst_pyr, t_y, t_yp, b_y),
+        "lk_level": entry(worst, t_k, t_p, b_k),
+        "lk_final_error": entry(err_final, t_ek, t_ep, b_ek),
     }
 
 
 def phase_main(dev, seq, card: str):
     from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.ops import lk as L
     from stereoslam_tpu_torch.ops import lk_level as K
     from stereoslam_tpu_torch.utils.metrics import ate_rmse
 
     cfg = kitti_config(seq)
     slam = StereoSlam(cfg, device=dev, enable_loop=False)
     n = len(seq.left)
+    L.lk_pyramid.launches = 0
     K.lk_level.launches = 0
     K.lk_final_error.launches = 0
     times = []
@@ -187,7 +436,8 @@ def phase_main(dev, seq, card: str):
         if t == WARMUP - 1:
             t_warm = time.perf_counter()
     t_end = time.perf_counter()
-    launches = {"lk_level": K.lk_level.launches, "lk_final_error": K.lk_final_error.launches}
+    launches = {"lk_pyramid": L.lk_pyramid.launches, "lk_level": K.lk_level.launches,
+                "lk_final_error": K.lk_final_error.launches}
 
     n_kf, n_lm = int(slam.map.n_kf), int(slam.map.n_lm)
     ids, T = slam.frame_trajectory()
@@ -202,17 +452,23 @@ def phase_main(dev, seq, card: str):
           f"{p50:.2f} ms [{card}]", flush=True)
     print(f"main: n_kf {n_kf}, n_lm {n_lm}, frame ATE {ate:.4f} m (align=False; the JAX package "
           f"on a CPU at 100 frames: 0.0905 m, 15 KFs), median inliers "
-          f"{int(np.median(slam.metrics['num_inliers']))}, lk_level launches {launches['lk_level']}"
-          f" ({launches['lk_level'] / tracked:.1f}/tracked frame), lk_final_error launches "
+          f"{int(np.median(slam.metrics['num_inliers']))}, lk_pyramid launches "
+          f"{launches['lk_pyramid']} ({launches['lk_pyramid'] / tracked:.2f}/tracked frame), "
+          f"per-level launches: lk_level {launches['lk_level']}, lk_final_error "
           f"{launches['lk_final_error']}", flush=True)
     if n_kf < 2 or n_lm <= 0:
         fail(f"map did not grow: n_kf {n_kf}, n_lm {n_lm}")
-    if launches["lk_level"] < 6 * tracked or launches["lk_final_error"] < 2 * tracked:
+    if launches["lk_pyramid"] < tracked:
         fail(f"the main path bypassed the LK kernel: {launches}")
+    if launches["lk_level"] or launches["lk_final_error"]:
+        fail(f"the main path launched the per-level entries: {launches}")
     if not ate <= MAX_ATE_M:
         fail(f"frame ATE {ate:.4f} m exceeds {MAX_ATE_M} m")
     if not KF_BAND[0] <= n_kf <= KF_BAND[1]:
         fail(f"{n_kf} keyframes outside {KF_BAND}")
+    if (n_kf, n_lm, round(ate, 4)) != EXPECTED_RUN:
+        fail(f"(KFs, landmarks, ATE) = {(n_kf, n_lm, round(ate, 4))}, expected {EXPECTED_RUN}: "
+             f"the run repeats bit for bit, so the code's arithmetic changed")
     return launches
 
 
@@ -242,6 +498,10 @@ def phase_profile(dev, seq, n_frames: int, card: str) -> None:
           f"kernel time {dev_ms:.1f} ms ({dev_ms / n_frames:.2f} ms/frame), {len(kernels)} distinct "
           f"kernels, {sum(e.count for e in kernels)} launches [{card}]", flush=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=25), flush=True)
+    for e in kernels:
+        if "lk_" in e.key:
+            print(f"profile: {e.key}: {e.count} launches, self device time "
+                  f"{e.self_device_time_total / max(e.count, 1):.2f} us/launch", flush=True)
 
     # Host syncs: torch warns once per synchronizing call in sync-debug mode.
     import warnings
@@ -293,7 +553,8 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda", "source": "stereoslam_tpu_torch/csrc/lk_level.cu",
          "replaces": replaces, "launches": launches[name], **numbers[name]}
-        for name, replaces in (("lk_level", "stereoslam_tpu/ops/lk_pallas.py:185"),
+        for name, replaces in (("lk_pyramid", "stereoslam_tpu/ops/lk_pallas.py:185"),
+                               ("lk_level", "stereoslam_tpu/ops/lk_pallas.py:185"),
                                ("lk_final_error", "stereoslam_tpu/ops/lk_batched.py:137"))
     ]
     print(f"card: {card}", flush=True)

@@ -4,11 +4,13 @@ Stereo visual odometry with inline windowed bundle adjustment, written as
 plain functions on torch tensors with an explicit device everywhere.  Module
 names mirror the JAX package so each function's counterpart is easy to find:
 
-- ``ops/``    SE(3), pinhole camera, triangulation, LK pyramid, the LK level
-              (a hand-written CUDA kernel, ``csrc/lk_level.cu``, with its
-              plain PyTorch version), pose-only LM, FAST, Schur-complement BA.
+- ``ops/``    SE(3), pinhole camera, triangulation, LK pyramid, pyramidal LK
+              (one launch of a hand-written CUDA kernel per call,
+              ``csrc/lk_level.cu``, with its plain PyTorch version),
+              pose-only LM, FAST, Schur-complement BA.
 - ``core/``   state containers, the frontend frame step, backend BA, landmark
-              compaction and the ``StereoSlam`` facade.
+              compaction and the ``StereoSlam`` facade (on the card unless
+              the caller passes ``device="cpu"``).
 - ``utils/``  numpy-only trajectory export, metrics and the synthetic
               sequence generator.
 - ``bridge``  numpy <-> torch state converters, used by the parity tests.

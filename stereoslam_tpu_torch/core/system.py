@@ -34,7 +34,7 @@ class StereoSlam:
 
     Usage::
 
-        slam = StereoSlam(cfg, device="cuda", enable_loop=False)
+        slam = StereoSlam(cfg)                  # on the card; device="cpu" for the CPU
         for left, right, ts in frames:
             if not slam.process_frame(left, right, ts):
                 break
@@ -44,21 +44,26 @@ class StereoSlam:
     def __init__(
         self,
         cfg: SlamConfig,
-        device="cpu",
+        device="cuda",
         enable_backend: bool = True,
         enable_loop: bool = False,
         inline_ba: bool = True,
     ):
-        """``device``: where every tensor of the state lives.
+        """``device``: where every tensor of the state lives, the card unless
+        the caller asks for ``"cpu"`` (which runs the plain versions of the
+        kernels).
         ``inline_ba``: run windowed BA inside the keyframe branch of the frame
         step; False runs it right after each keyframe frame."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("StereoSlam runs on the card by default and no CUDA device is "
+                               "available: pass device='cpu' to run on the CPU")
         if enable_loop:
             raise NotImplementedError("loop closing is not ported to stereoslam_tpu_torch yet")
         if cfg.camera.need_undistortion:
             raise NotImplementedError("undistortion is not ported to stereoslam_tpu_torch yet")
         cfg.validate()
         self.cfg = cfg
-        self.device = torch.device(device)
         self.enable_backend = enable_backend
         cam = cfg.camera
         self.intr_left = Intrinsics.create(cam.fx, cam.fy, cam.cx, cam.cy)

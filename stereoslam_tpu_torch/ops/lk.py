@@ -2,19 +2,38 @@
 
 Replaces ``cv::calcOpticalFlowPyrLK`` as the reference uses it (reference
 src/frontend.cpp:150-153, 355-360; OPTFLOW_USE_INITIAL_FLOW).  All N tracks
-advance together, one level at a time, through :func:`lk_level` (the CUDA
-kernel on a card, its plain version on the CPU).  The JAX package's
-three-way ``STEREOSLAM_LK`` switch is gone: the port has one level
-implementation.
+advance together through :func:`lk_pyramid` (also named
+:func:`pyramidal_lk`): on a card one launch of ``csrc/lk_level.cu`` per call
+(every level, the final error, the status and the forward-backward check);
+on the CPU :func:`lk_pyramid_plain`, the same call composed of the plain
+per-level functions of ``ops/lk_level.py``.  The JAX package's three-way
+``STEREOSLAM_LK`` switch is gone: the port has one implementation.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+import ctypes
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from stereoslam_tpu_torch.ops.lk_level import lk_final_error, lk_level
+from stereoslam_tpu_torch.ops.lk_level import (
+    MAX_LEVELS,
+    MIN_EIG,
+    WINDOW,
+    _check_launch,
+    _check_tensor,
+    _launch_stream,
+    _library,
+    _on_cuda,
+    lk_final_error,
+    lk_final_error_plain,
+    lk_level,
+    lk_level_plain,
+    window_plan,
+)
+
+__all__ = ["FlowResult", "lk_pyramid", "lk_pyramid_plain", "pyramidal_lk"]
 
 
 class FlowResult(NamedTuple):
@@ -23,12 +42,75 @@ class FlowResult(NamedTuple):
     error: torch.Tensor   # (N,) float32 mean |residual| over the window
 
 
-def pyramidal_lk(
+def _compose(
+    level_fn: Callable,
+    error_fn: Callable,
     pyr_prev: Sequence[torch.Tensor],
     pyr_next: Sequence[torch.Tensor],
     pts_prev: torch.Tensor,
     pts_init: torch.Tensor,
-    window: int = 11,
+    window: int = WINDOW,
+    iters: int = 30,
+    eps: float = 0.01,
+    max_error: float = 30.0,
+    forward_backward: float = 0.0,
+    fb_iters: int = 10,
+    fb_levels: int = 0,
+) -> FlowResult:
+    """A pyramidal-LK call composed of one ``level_fn`` call per level and
+    one ``error_fn`` call."""
+    n_levels = len(pyr_prev)
+    flow = (pts_init - pts_prev) / float(2 ** (n_levels - 1))
+    good_all = torch.ones(pts_prev.shape[0], dtype=torch.bool, device=pts_prev.device)
+    for lvl in range(n_levels - 1, -1, -1):
+        pts_l = (pts_prev / float(2 ** lvl)).contiguous()
+        flow, good = level_fn(pyr_prev[lvl], pyr_next[lvl], pts_l, flow.contiguous(),
+                              iters=iters, eps=eps, window=window)
+        if lvl == 0:
+            good_all = good_all & good
+        else:
+            flow = flow * 2.0
+
+    pts_next = pts_prev + flow
+    h, w = pyr_next[0].shape
+    margin = window // 2
+    in_bounds = (
+        (pts_next[:, 0] >= margin) & (pts_next[:, 0] < w - margin)
+        & (pts_next[:, 1] >= margin) & (pts_next[:, 1] < h - margin)
+    )
+    err = error_fn(pyr_prev[0], pyr_next[0], pts_prev.contiguous(), flow.contiguous(),
+                   window=window)
+    status = good_all & in_bounds & (err < max_error)
+
+    if forward_backward > 0.0:
+        fb_next = pyr_next[:fb_levels] if fb_levels > 0 else pyr_next
+        fb_prev = pyr_prev[:fb_levels] if fb_levels > 0 else pyr_prev
+        back = _compose(level_fn, error_fn, fb_next, fb_prev, pts_next, pts_next, window=window,
+                        iters=fb_iters, eps=eps, max_error=max_error)
+        round_trip = torch.linalg.norm(back.points - pts_prev, dim=-1)
+        status = status & back.status & (round_trip <= forward_backward)
+    return FlowResult(points=pts_next, status=status, error=err)
+
+
+def lk_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, **kw) -> FlowResult:
+    """The plain version of :func:`lk_pyramid`: the per-level plain functions
+    composed level by level."""
+    return _compose(lk_level_plain, lk_final_error_plain, pyr_prev, pyr_next, pts_prev,
+                    pts_init, **kw)
+
+
+def lk_pyramid_levels(pyr_prev, pyr_next, pts_prev, pts_init, **kw) -> FlowResult:
+    """:func:`lk_pyramid` composed of ``lk_level`` and ``lk_final_error``
+    calls, which launch one kernel each on a card."""
+    return _compose(lk_level, lk_final_error, pyr_prev, pyr_next, pts_prev, pts_init, **kw)
+
+
+def lk_pyramid(
+    pyr_prev: Sequence[torch.Tensor],
+    pyr_next: Sequence[torch.Tensor],
+    pts_prev: torch.Tensor,
+    pts_init: torch.Tensor,
+    window: int = WINDOW,
     iters: int = 30,
     eps: float = 0.01,
     max_error: float = 30.0,
@@ -44,35 +126,53 @@ def pyramidal_lk(
     flow, ``fb_iters`` iterations, the finest ``fb_levels`` levels, 0 = all)
     and rejects tracks whose round trip misses the start by more than that
     many pixels — the guard against ghost locks from biased seeds.
+
+    On CUDA tensors the whole call is one kernel launch, counted in
+    ``lk_pyramid.launches``; on CPU tensors it runs :func:`lk_pyramid_plain`.
     """
+    kw = dict(window=window, iters=iters, eps=eps, max_error=max_error,
+              forward_backward=forward_backward, fb_iters=fb_iters, fb_levels=fb_levels)
+    if not _on_cuda("lk_pyramid", pyr_prev[0]):
+        return lk_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, **kw)
+    dev = pyr_prev[0].device
     n_levels = len(pyr_prev)
-    flow = (pts_init - pts_prev) / float(2 ** (n_levels - 1))
-    good_all = torch.ones(pts_prev.shape[0], dtype=torch.bool, device=pts_prev.device)
-    for lvl in range(n_levels - 1, -1, -1):
-        pts_l = (pts_prev / float(2 ** lvl)).contiguous()
-        flow, good = lk_level(pyr_prev[lvl], pyr_next[lvl], pts_l, flow.contiguous(),
-                              iters=iters, eps=eps, window=window)
-        if lvl == 0:
-            good_all = good_all & good
-        else:
-            flow = flow * 2.0
+    if window != WINDOW:
+        raise ValueError(f"the LK kernel is compiled for a {WINDOW}x{WINDOW} window, got {window}")
+    if len(pyr_next) != n_levels or not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"pyramids of {n_levels} and {len(pyr_next)} levels: the kernel takes "
+                         f"two of one depth, 1 to {MAX_LEVELS}")
+    for lvl, (a, b) in enumerate(zip(pyr_prev, pyr_next)):
+        _check_tensor(f"pyr_prev[{lvl}]", a, dev)
+        _check_tensor(f"pyr_next[{lvl}]", b, dev)
+        if a.dim() != 2 or b.shape != a.shape:
+            raise ValueError(f"level {lvl}: images must share one (H, W) shape: "
+                             f"{tuple(a.shape)} vs {tuple(b.shape)}")
+    pts_prev, pts_init = pts_prev.contiguous(), pts_init.contiguous()
+    _check_tensor("pts_prev", pts_prev, dev)
+    _check_tensor("pts_init", pts_init, dev)
+    if pts_prev.dim() != 2 or pts_prev.shape[1] != 2 or pts_init.shape != pts_prev.shape:
+        raise ValueError(f"pts_prev and pts_init must be (N, 2): {tuple(pts_prev.shape)} vs "
+                         f"{tuple(pts_init.shape)}")
+    lib = _library()
+    N = pts_prev.shape[0]
+    points = torch.empty_like(pts_prev)
+    status = torch.empty((N,), dtype=torch.bool, device=dev)
+    error = torch.empty((N,), dtype=torch.float32, device=dev)
+    ptrs = ctypes.c_void_p * n_levels
+    dims = ctypes.c_int * n_levels
+    with torch.cuda.device(dev):
+        err = lib.lk_pyramid_launch(
+            ptrs(*(a.data_ptr() for a in pyr_prev)), ptrs(*(b.data_ptr() for b in pyr_next)),
+            dims(*(a.shape[0] for a in pyr_prev)), dims(*(a.shape[1] for a in pyr_prev)),
+            n_levels, int(fb_levels), pts_prev.data_ptr(), pts_init.data_ptr(), N, int(iters),
+            int(fb_iters), float(eps * eps), MIN_EIG, float(max_error), float(forward_backward),
+            points.data_ptr(), status.data_ptr(), error.data_ptr(),
+            window_plan().bytes_per_feature, _launch_stream(dev),
+        )
+    _check_launch(err, "lk_pyramid")
+    lk_pyramid.launches += 1
+    return FlowResult(points=points, status=status, error=error)
 
-    pts_next = pts_prev + flow
-    h, w = pyr_next[0].shape
-    margin = window // 2
-    in_bounds = (
-        (pts_next[:, 0] >= margin) & (pts_next[:, 0] < w - margin)
-        & (pts_next[:, 1] >= margin) & (pts_next[:, 1] < h - margin)
-    )
-    err = lk_final_error(pyr_prev[0], pyr_next[0], pts_prev.contiguous(), flow.contiguous(),
-                         window=window)
-    status = good_all & in_bounds & (err < max_error)
 
-    if forward_backward > 0.0:
-        fb_next = pyr_next[:fb_levels] if fb_levels > 0 else pyr_next
-        fb_prev = pyr_prev[:fb_levels] if fb_levels > 0 else pyr_prev
-        back = pyramidal_lk(fb_next, fb_prev, pts_next, pts_next, window=window,
-                            iters=fb_iters, eps=eps, max_error=max_error)
-        round_trip = torch.linalg.norm(back.points - pts_prev, dim=-1)
-        status = status & back.status & (round_trip <= forward_backward)
-    return FlowResult(points=pts_next, status=status, error=err)
+lk_pyramid.launches = 0
+pyramidal_lk = lk_pyramid

@@ -1,5 +1,5 @@
-"""One pyramidal-LK level: the CUDA kernel ``csrc/lk_level.cu`` and its plain
-PyTorch version.
+"""One pyramidal-LK level: the CUDA kernel ``csrc/lk_level.cu``, its plain
+PyTorch version and its build.
 
 Replaces ``stereoslam_tpu/ops/lk_pallas.py::lk_level_pallas`` with the
 semantics of the shipped TPU path, ``ops/lk_batched.py`` ``track_level_batched``:
@@ -8,11 +8,17 @@ integer indices clamped to the image (edge replication), template gradients
 sampled at +-0.5 px without division, and the OpenCV-style min-eigenvalue
 gate.  A feature that converged stops; that equals the masked fixed loop.
 
+Entry points :func:`lk_level` and :func:`lk_final_error` run one level and
+the final error alone, on the device code that ``ops/lk.py`` ``lk_pyramid``
+launches for a whole call; they hold the kernel against its plain version
+level by level.  :func:`window_plan` sizes the windows the kernel stages in
+shared memory.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises.  The kernel is compiled with ``nvcc`` at the first CUDA
 call (never at import) into ``stereoslam_tpu_torch/_build/``, keyed by a hash
-of the source, and bound with ctypes.  ``lk_level.launches`` and
-``lk_final_error.launches`` count kernel launches.
+of the source, and bound with ctypes.  Each entry point's ``launches``
+attribute counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -20,22 +26,65 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 WINDOW = 11      # the window the kernel is compiled for (ops/lk_pallas.py WINDOW)
 BOUND = 12.0     # per-level flow excursion (ops/lk_batched.py BOUND)
+MIN_EIG = 1e-4   # min-eigenvalue gate per window sample (cv::calcOpticalFlowPyrLK default)
+MAX_LEVELS = 8   # pyramid levels a kernel call takes (kMaxLevels in the source)
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCE = _PKG / "csrc" / "lk_level.cu"
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC")
+
+
+# ---------------------------------------------------------------------------
+# The windows the kernel stages in shared memory
+# ---------------------------------------------------------------------------
+
+class WindowPlan(NamedTuple):
+    template_pad: int       # template origin = integer base of the point - template_pad
+    template_side: int
+    search_pad: int         # search origin = integer base of point + level's initial flow - search_pad
+    search_side: int
+    pitch: int              # floats between the rows of either region in shared memory
+    bytes_per_feature: int  # shared memory of one feature: both regions
+
+
+def window_plan(window: int = WINDOW, bound: float = BOUND) -> WindowPlan:
+    """Sizes of the two regions one feature stages per level.
+
+    Template: the window, one px each side for the +-0.5 px gradient taps,
+    and the second bilinear tap.  Search: the window, +-ceil(bound) px of
+    clip around the level's start, one px each side for the rounding of
+    (point + flow), and the second bilinear tap.  The rows of both are padded
+    to a pitch equal to ``window`` mod 32, so window sample k falls on bank
+    k mod 32.  The kernel refuses a launch whose size disagrees with its own.
+    """
+    r, clip = window // 2, math.ceil(bound)
+    t_side = window + 3
+    s_side = window + 2 * clip + 3
+    pitch = s_side + (window - s_side) % 32
+    return WindowPlan(r + 1, t_side, r + clip + 1, s_side, pitch, 4 * (t_side + s_side) * pitch)
+
+
+def window_origins(pts: torch.Tensor, flow: torch.Tensor, window: int = WINDOW
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, y) origins (N, 2) int64 of the template and search regions the
+    kernel stages for ``pts`` at a level whose initial flow is ``flow``."""
+    plan = window_plan(window)
+    base = torch.stack([_split(pts[:, i])[0] for i in (0, 1)], dim=-1)
+    start = torch.stack([_split(pts[:, i] + flow[:, i])[0] for i in (0, 1)], dim=-1)
+    return base - plan.template_pad, start - plan.search_pad
 
 
 # ---------------------------------------------------------------------------
@@ -92,10 +141,17 @@ def lk_level_plain(
     flow: torch.Tensor,
     iters: int,
     eps: float,
-    min_eig: float = 1e-4,
+    min_eig: float = MIN_EIG,
     window: int = WINDOW,
+    visit: Optional[Callable[[torch.Tensor, torch.Tensor], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LK level for all N features.  Returns (flow (N, 2), good (N,))."""
+    """One LK level for all N features.  Returns (flow (N, 2), good (N,)).
+
+    ``visit(flow, active)``, where given, is called before each iteration
+    with the flow it samples at and the (N,) mask of the features that run
+    it (the kernel's loop stops for the others); chip_smoke.py counts the
+    work of a call from it.
+    """
     T, Ix, Iy = _template(img_prev, pts, window)
     g11 = (Ix * Ix).sum(1)
     g12 = (Ix * Iy).sum(1)
@@ -110,11 +166,14 @@ def lk_level_plain(
     flow0 = flow
     converged = ~good
     for _ in range(iters):
+        active = good & ~converged
+        if visit is not None:
+            visit(flow, active)
         r = _warp(img_next, pts, flow, window) - T
         b1 = (r * Ix).sum(1)
         b2 = (r * Iy).sum(1)
         step = torch.stack([-(inv11 * b1 + inv12 * b2), -(inv12 * b1 + inv22 * b2)], dim=-1)
-        step = torch.where((good & ~converged)[:, None], step, torch.zeros_like(step))
+        step = torch.where(active[:, None], step, torch.zeros_like(step))
         flow = torch.minimum(torch.maximum(flow + step, flow0 - BOUND), flow0 + BOUND)
         converged = converged | ((step * step).sum(-1) < eps * eps)
     return flow, good
@@ -167,15 +226,28 @@ def build_library() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_level_launch.argtypes = [p, p, i, i, p, p, p, p, i, i, f, f, p]
-    lib.lk_level_launch.restype = i
-    lib.lk_final_error_launch.argtypes = [p, p, i, i, p, p, p, i, p]
-    lib.lk_final_error_launch.restype = i
+    lib.lk_pyramid_launch.argtypes = [p, p, p, p, i, i, p, p, i, i, i, f, f, f, f, p, p, p,
+                                      i, p]
+    lib.lk_level_launch.argtypes = [p, p, i, i, p, p, p, p, i, i, f, f, i, p]
+    lib.lk_final_error_launch.argtypes = [p, p, i, i, p, p, p, i, i, p]
+    for fn in (lib.lk_pyramid_launch, lib.lk_level_launch, lib.lk_final_error_launch,
+               lib.lk_window, lib.lk_max_levels):
+        fn.restype = i
     lib.lk_window.argtypes = []
-    lib.lk_window.restype = i
-    if lib.lk_window() != WINDOW:
-        raise RuntimeError(f"kernel built for window {lib.lk_window()}, expected {WINDOW}")
+    lib.lk_max_levels.argtypes = []
+    if (lib.lk_window(), lib.lk_max_levels()) != (WINDOW, MAX_LEVELS):
+        raise RuntimeError(f"kernel built for window {lib.lk_window()} and {lib.lk_max_levels()} "
+                           f"levels, expected {WINDOW} and {MAX_LEVELS}")
     return lib
+
+
+def _check_tensor(name: str, t: torch.Tensor, dev: torch.device) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_cuda_args(img_prev, img_next, pts, flow, window) -> None:
@@ -183,20 +255,29 @@ def _check_cuda_args(img_prev, img_next, pts, flow, window) -> None:
     if window != WINDOW:
         raise ValueError(f"the LK kernel is compiled for a {WINDOW}x{WINDOW} window, got {window}")
     for name, t in (("img_prev", img_prev), ("img_next", img_next), ("pts", pts), ("flow", flow)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, t, dev)
     if img_prev.dim() != 2 or img_next.shape != img_prev.shape:
         raise ValueError(f"images must share one (H, W) shape: {img_prev.shape} vs {img_next.shape}")
     if pts.dim() != 2 or pts.shape[1] != 2 or flow.shape != pts.shape:
         raise ValueError(f"pts and flow must be (N, 2): {pts.shape} vs {flow.shape}")
 
 
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
 def _launch_stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (take the plain version), True for CUDA."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {t.device}")
+    return True
 
 
 def lk_level(
@@ -206,14 +287,12 @@ def lk_level(
     flow: torch.Tensor,
     iters: int,
     eps: float,
-    min_eig: float = 1e-4,
+    min_eig: float = MIN_EIG,
     window: int = WINDOW,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LK level for all N features: (flow (N, 2), good (N,) bool)."""
-    if img_prev.device.type == "cpu":
+    if not _on_cuda("lk_level", img_prev):
         return lk_level_plain(img_prev, img_next, pts, flow, iters, eps, min_eig, window)
-    if img_prev.device.type != "cuda":
-        raise ValueError(f"lk_level runs on CPU or CUDA tensors, got {img_prev.device}")
     _check_cuda_args(img_prev, img_next, pts, flow, window)
     lib = _library()
     H, W = img_prev.shape
@@ -224,10 +303,10 @@ def lk_level(
         err = lib.lk_level_launch(
             img_prev.data_ptr(), img_next.data_ptr(), H, W, pts.data_ptr(), flow.data_ptr(),
             flow_out.data_ptr(), good.data_ptr(), N, int(iters), float(eps * eps),
-            float(min_eig), _launch_stream(img_prev.device),
+            float(min_eig), window_plan().bytes_per_feature,
+            _launch_stream(img_prev.device),
         )
-    if err != 0:
-        raise RuntimeError(f"lk_level kernel launch failed with CUDA error {err}")
+    _check_launch(err, "lk_level")
     lk_level.launches += 1
     return flow_out, good
 
@@ -240,10 +319,8 @@ def lk_final_error(
     window: int = WINDOW,
 ) -> torch.Tensor:
     """Mean |J - T| over the window at ``flow``: (N,) float32."""
-    if img_prev.device.type == "cpu":
+    if not _on_cuda("lk_final_error", img_prev):
         return lk_final_error_plain(img_prev, img_next, pts, flow, window)
-    if img_prev.device.type != "cuda":
-        raise ValueError(f"lk_final_error runs on CPU or CUDA tensors, got {img_prev.device}")
     _check_cuda_args(img_prev, img_next, pts, flow, window)
     lib = _library()
     H, W = img_prev.shape
@@ -252,10 +329,10 @@ def lk_final_error(
     with torch.cuda.device(img_prev.device):
         err = lib.lk_final_error_launch(
             img_prev.data_ptr(), img_next.data_ptr(), H, W, pts.data_ptr(), flow.data_ptr(),
-            err_out.data_ptr(), N, _launch_stream(img_prev.device),
+            err_out.data_ptr(), N, window_plan().bytes_per_feature,
+            _launch_stream(img_prev.device),
         )
-    if err != 0:
-        raise RuntimeError(f"lk_final_error kernel launch failed with CUDA error {err}")
+    _check_launch(err, "lk_final_error")
     lk_final_error.launches += 1
     return err_out
 

@@ -1,7 +1,8 @@
 """The whole VO slice of the torch port on the CPU: ``StereoSlam`` over the
 40-frame synthetic sequence of tests/test_system_vo.py, held to that test's
 bounds (no LOST, ATE < 0.5 m with align=False, >= 2 keyframes, > 100
-landmarks), plus the facade's init retry, LOST, export and capacity guards.
+landmarks), plus the facade's init retry, LOST, export and capacity guards,
+and its default device (the card).
 """
 
 import dataclasses
@@ -122,6 +123,19 @@ def test_capacity_guards(seq, caplog):
         assert slam2.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
     assert slam2.compaction_count >= 1
     assert int(slam2.map.n_lm) <= 240
+
+
+def test_default_device_is_the_card(seq):
+    """The entry point runs on the card unless the caller asks for the CPU;
+    with no card it refuses at once instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        assert StereoSlam(make_cfg(seq)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            StereoSlam(make_cfg(seq))
+    slam = StereoSlam(make_cfg(seq), device="cpu", enable_backend=False)
+    assert slam.device.type == "cpu" and slam.map.lm_pos.device.type == "cpu"
+    assert slam.process_frame(seq.left[0], seq.right[0], seq.timestamps[0])
 
 
 def test_unported_options_raise(seq):
