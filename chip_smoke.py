@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # the full run: 100 KITTI-geometry frames
-    python3 chip_smoke.py --profile 20   # also profile 20 more frames (torch.profiler)
+    python3 chip_smoke.py                # the full run: VO, CALC and loop-closing phases
+    python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
 
 Phases, each printing its lines and stopping the run with a non-zero exit on
 failure:
@@ -25,7 +25,19 @@ failure:
              trajectory error against ground truth (and that they repeat the
              port's known run), that every tracked frame went through
              ``lk_pyramid`` and that no per-level entry was launched.
-5. profile — with ``--profile N``: device busy share, the top kernels, the
+5. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
+             and the HOG descriptor on one 376x1241 keyframe image, on the
+             card against the same module on the CPU (float32, TF32 off),
+             with each one's device time per call.
+6. loop    — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
+             descriptor over a closed blob-world circuit at KITTI geometry,
+             with the full-size state (400 features x 8 ORB levels, 1536
+             keyframe rows, 131,072 landmark rows); checks no LOST, a true
+             loop edge, the trajectory error, that every tracked frame went
+             through ``lk_pyramid``, and that the run repeats the port's
+             known one; prints FPS, per-stage keyframe times and PGO
+             iterations.
+7. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last line
@@ -60,6 +72,27 @@ KF_BAND = (8, 30)
 EXPECTED_RUN = (15, 850, 0.1161)
 N_FRAMES = 100
 WARMUP = 12
+# CALC on the card against the CPU (float32, TF32 off).
+CALC_MAX_ABS = 1e-5
+CALC_MIN_DOT = 0.99999
+# The loop phase's circuit: tests/test_system_loop.py's closed loop (radius
+# 6.68 m) sampled 2.25x as densely, so that the image motion per frame at
+# fx = 718.856 is the test's at fx = 320; 4000 blobs of seed 8, on which the
+# JAX package initializes at frame 0 and tracks the whole circuit; a 6-level
+# stereo pyramid for the 2.25x larger disparities.  At this geometry every
+# keyframe pair of the blob world scores 0.95-0.97 by HOG, so the test's
+# 0.93/0.92 thresholds make every keyframe a suspect; they are re-tuned to
+# this similarity scale (scripts/jax_loop_circuit.py prints it).
+LOOP_SCALE = 2.25
+LOOP_CIRCUIT = dict(n_frames=338, loop_frames=270, speed=0.35 / LOOP_SCALE, n_points=4000, seed=8)
+LOOP_LK_LEVELS, LOOP_STEREO_LEVELS = 4, 6
+LOOP_SIMILARITY = (0.975, 0.970)
+MAX_LOOP_ATE_M = 1.0
+MAX_LOOP_GT_M = 4.0
+# The loop run as the port's first card run of this circuit gave it:
+# (keyframes, loop edges, frame ATE in m).  It repeats bit for bit, as the VO
+# run does.  The JAX package on a CPU gives 83 KFs, 2 edges and 0.1827 m on it.
+EXPECTED_LOOP_RUN = (84, 2, 0.1089)
 
 
 def fail(msg: str) -> None:
@@ -138,6 +171,32 @@ def kitti_config(seq):
         map=MapConfig(),
         image_height=seq.left.shape[1],
         image_width=seq.left.shape[2],
+    )
+
+
+def loop_sequence():
+    from stereoslam_tpu_torch.utils.synthetic import generate_sequence
+
+    return generate_sequence(h=376, w=1241, fx=718.856, baseline=386.1448 / 718.856,
+                             trajectory="loop", **LOOP_CIRCUIT)
+
+
+def loop_config(seq):
+    """KITTI geometry with the default feature and map sizes and the loop
+    settings of tests/test_system_loop.py's loop_cfg, its similarity
+    thresholds re-tuned to this geometry."""
+    import dataclasses
+
+    from stereoslam_tpu_torch.config import LoopClosingConfig
+
+    cfg = kitti_config(seq)
+    return cfg.replace(
+        loop=LoopClosingConfig(similarity_high=LOOP_SIMILARITY[0],
+                               similarity_low=LOOP_SIMILARITY[1], max_above_low=6,
+                               database_min_size=5, id_gap=10, min_matches=10, min_inliers=10,
+                               correction_threshold=0.5),
+        tracking=dataclasses.replace(cfg.tracking, lk_levels=LOOP_LK_LEVELS,
+                                     lk_stereo_levels=LOOP_STEREO_LEVELS),
     )
 
 
@@ -472,6 +531,136 @@ def phase_main(dev, seq, card: str):
     return launches
 
 
+def phase_calc(dev, img_np, card: str) -> None:
+    """The shipped CALC encoder and the HOG descriptor on one keyframe image,
+    on the card against the CPU."""
+    from stereoslam_tpu_torch.models import calc
+
+    img_cpu = torch.from_numpy(img_np.astype(np.uint8)).float()
+    img = img_cpu.to(dev)
+    on_card, on_cpu = calc.DescriptorModel.default(), calc.DescriptorModel.default()
+    if on_card.params is None:
+        fail(f"the shipped CALC weights were not found at {calc.DEFAULT_WEIGHTS}")
+    for name, card_fn, cpu_fn in (("CALC encoder (shipped weights)", on_card, on_cpu),
+                                  ("HOG descriptor", calc.hog_descriptor, calc.hog_descriptor)):
+        got, ref = card_fn(img), cpu_fn(img_cpu)
+        err = (got.cpu() - ref).abs().max().item()
+        dot = float(got.cpu() @ ref)
+        ms = device_ms(lambda: card_fn(img), launches=20)
+        print(f"calc: {name} on {tuple(img.shape)}: max |d| card vs CPU {err:.2e}, dot {dot:.7f}, "
+              f"device time {ms:.4f} ms per call [{card}]", flush=True)
+        if not (err <= CALC_MAX_ABS and dot >= CALC_MIN_DOT and got.shape == (1064,)):
+            fail(f"{name} on the card disagrees with the CPU (max |d| {err:.2e}, dot {dot:.7f})")
+
+
+def phase_loop(dev, card: str) -> None:
+    """Loop closing on the card over the closed KITTI-geometry circuit."""
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.models.calc import DescriptorModel
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+    from stereoslam_tpu_torch.utils.metrics import ate_rmse
+
+    t0 = time.perf_counter()
+    seq = loop_sequence()
+    print(f"loop: data {len(seq.left)} frames 376x1241 ({LOOP_CIRCUIT}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = loop_config(seq)
+    slam = StereoSlam(cfg, device=dev, enable_loop=True, descriptor_model=DescriptorModel())
+    closer = slam._loop_closer
+    closer.stage_times = True
+    state_mb = sum(t.numel() * t.element_size() for t in slam.loop) / 1e6
+    print(f"loop: LoopState {state_mb:.1f} MB on {slam.loop.orb_desc.device} (orb_desc "
+          f"{tuple(slam.loop.orb_desc.shape)} {slam.loop.orb_desc.dtype}), map "
+          f"{cfg.map.max_keyframes} KF rows x {cfg.map.max_landmarks} landmark rows", flush=True)
+    n = len(seq.left)
+    L.lk_pyramid.launches = 0
+    K.lk_level.launches = 0
+    K.lk_final_error.launches = 0
+    t_start = time.perf_counter()
+    for t in range(n):
+        if not slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t]):
+            fail(f"loop phase: tracking LOST at frame {t}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = L.lk_pyramid.launches
+    edges = slam.loop_edges
+    n_kf = int(slam.map.n_kf)
+    ids, T = slam.frame_trajectory()
+    gt = np.linalg.inv(seq.T_cw.astype(np.float64))
+    ate = ate_rmse(np.linalg.inv(T.astype(np.float64)), gt[ids], align=False)
+    fid = slam.map.kf_frame_id[:n_kf].cpu().numpy()
+    gaps = [(c, lp, c - lp, float(np.linalg.norm(gt[fid[c]][:3, 3] - gt[fid[lp]][:3, 3])))
+            for c, lp in edges]
+    times = closer.times
+
+    def med_ms(key):
+        v = times.get(key, [])
+        return f"{np.median(v) * 1e3:.2f} ms (n={len(v)})" if v else "none"
+
+    print(f"loop: {n} frames in {wall:.1f} s, {n / wall:.2f} FPS (stage timing syncs the card "
+          f"after each loop stage) [{card}]", flush=True)
+    print(f"loop: n_kf {n_kf}, loop edges (cur, loop, id gap, ground-truth m) {gaps}, frame ATE "
+          f"{ate:.4f} m (align=False), lk_pyramid launches {launches} "
+          f"({launches / (n - 1):.2f}/tracked frame), per-level launches "
+          f"{K.lk_level.launches + K.lk_final_error.launches}", flush=True)
+    print(f"loop: median host wall time per keyframe stage: process_keyframe "
+          f"{med_ms('process_keyframe')}, detect {med_ms('detect')}, verify {med_ms('verify')}, "
+          f"correct {med_ms('correct')}; PGO GN iterations {times.get('pgo_gn', [])}, CG "
+          f"iterations {times.get('pgo_cg', [])} [{card}]", flush=True)
+    if not edges:
+        fail("loop phase: no loop edge")
+    for c, lp, gap, dist in gaps:
+        if gap < cfg.loop.id_gap or dist >= MAX_LOOP_GT_M:
+            fail(f"loop phase: edge {c}->{lp} has id gap {gap} or ground-truth distance {dist:.2f} m")
+    if not ate <= MAX_LOOP_ATE_M:
+        fail(f"loop phase: frame ATE {ate:.4f} m exceeds {MAX_LOOP_ATE_M} m")
+    if launches < n - 1:
+        fail(f"loop phase: the main path bypassed the LK kernel ({launches} launches)")
+    check_correction(slam, edges[-1], card)
+    run = (n_kf, len(edges), round(ate, 4))
+    if run != EXPECTED_LOOP_RUN:
+        fail(f"loop phase: (KFs, edges, ATE) = {run}, expected {EXPECTED_LOOP_RUN}: the run "
+             f"repeats bit for bit, so the code's arithmetic changed")
+
+
+def check_correction(slam, edge, card: str) -> None:
+    """The correction stage (landmark merge and pose-graph optimization over
+    the full 1536-row keyframe table) on the run's final state at its last
+    loop edge, on the card and on a CPU copy of the same inputs.  The run's
+    own verified loops were close enough not to need one, so the stage is
+    applied here whether or not the pose error asks for it."""
+    from stereoslam_tpu_torch.core.loopclosing import LoopCloser
+    from stereoslam_tpu_torch.core.state import LoopState, MapState
+
+    closer = slam._loop_closer
+    kf, loop_kf = edge
+    verify, packed, m_v = closer._verify_impl(slam.map, slam.loop, kf, loop_kf)
+    T, pairs = verify.T_corrected, verify.match_loop_feat
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_card, _, remap_card, c_card = closer._correct_impl(m_v, slam.loop, kf, loop_kf, T, pairs)
+    c_card = c_card.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu_closer = LoopCloser(slam.cfg, closer.intr, "cpu", descriptor_model=closer.model)
+    m_cpu, _, remap_cpu, c_cpu = cpu_closer._correct_impl(
+        MapState(*(t.cpu() for t in m_v)), LoopState(*(t.cpu() for t in slam.loop)), kf, loop_kf,
+        T.cpu(), pairs.cpu())
+    d_pose = (m_card.kf_T_cw.cpu() - m_cpu.kf_T_cw).abs().max().item()
+    d_pos = (m_card.lm_pos.cpu() - m_cpu.lm_pos)[m_cpu.lm_valid].abs().max().item()
+    same_merge = torch.equal(remap_card.cpu(), remap_cpu) and torch.equal(
+        m_card.kf_feat_lm.cpu(), m_cpu.kf_feat_lm)
+    print(f"loop: correction at edge {kf}->{loop_kf} on the final state ({int(pairs.ge(0).sum())} "
+          f"merged pairs, verify pose error {float(packed[2]):.3f} m): applied {bool(c_card[0])}, "
+          f"mean edge residual {c_card[1]:.2e} (bound {c_card[2]:.2e}), {ms:.1f} ms host wall "
+          f"time, PGO GN/CG iterations {closer.times['pgo_gn'][-1]}/{closer.times['pgo_cg'][-1]} "
+          f"(CPU: {cpu_closer.times['pgo_gn'][-1]}/{cpu_closer.times['pgo_cg'][-1]}); card vs "
+          f"CPU max |d pose| {d_pose:.2e}, max |d landmark| {d_pos:.2e} m, merge "
+          f"{'identical' if same_merge else 'DIFFERS'} [{card}]", flush=True)
+    if not (bool(c_card[0]) == bool(c_cpu[0]) and same_merge and d_pose <= 2e-3 and d_pos <= 2e-2):
+        fail("loop phase: the correction on the card disagrees with the CPU")
+
+
 def phase_profile(dev, seq, n_frames: int, card: str) -> None:
     """Device busy share and the top CUDA kernels over frames
     [WARMUP, WARMUP + n_frames) of a second run of the main path."""
@@ -547,6 +736,8 @@ def main() -> None:
           flush=True)
     numbers = phase_kernels(dev, seq, card)
     launches = phase_main(dev, seq, card)
+    phase_calc(dev, seq.left[0], card)
+    phase_loop(dev, card)
     if args.profile:
         phase_profile(dev, seq, min(args.profile, len(seq.left) - WARMUP), card)
 

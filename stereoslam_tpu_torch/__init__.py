@@ -1,19 +1,23 @@
 """stereoslam_tpu_torch — the PyTorch/CUDA port of ``stereoslam_tpu``.
 
-Stereo visual odometry with inline windowed bundle adjustment, written as
-plain functions on torch tensors with an explicit device everywhere.  Module
-names mirror the JAX package so each function's counterpart is easy to find:
+Stereo SLAM with inline windowed bundle adjustment and deep loop closing,
+written as plain functions on torch tensors with an explicit device
+everywhere.  Module names mirror the JAX package so each function's
+counterpart is easy to find:
 
-- ``ops/``    SE(3), pinhole camera, triangulation, LK pyramid, pyramidal LK
-              (one launch of a hand-written CUDA kernel per call,
+- ``ops/``    SE(3), pinhole camera, triangulation, image pyramids, pyramidal
+              LK (one launch of a hand-written CUDA kernel per call,
               ``csrc/lk_level.cu``, with its plain PyTorch version),
-              pose-only LM, FAST, Schur-complement BA.
+              pose-only LM, FAST, Schur-complement BA; for loop closing,
+              orientation, BRIEF, pyramid ORB, Hamming matching, P3P,
+              PnP-RANSAC and pose-graph optimization.
+- ``models/`` the CALC encoder and the HOG place descriptor.
 - ``core/``   state containers, the frontend frame step, backend BA, landmark
-              compaction and the ``StereoSlam`` facade (on the card unless
-              the caller passes ``device="cpu"``).
+              compaction, the loop closer and the ``StereoSlam`` facade (on
+              the card unless the caller passes ``device="cpu"``).
 - ``utils/``  numpy-only trajectory export, metrics and the synthetic
               sequence generator.
-- ``bridge``  numpy <-> torch state converters, used by the parity tests.
+- ``bridge``  numpy <-> torch state and CALC-weight converters.
 
 The package never imports jax: it has to run where JAX is not installed.
 """

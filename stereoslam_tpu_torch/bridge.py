@@ -1,11 +1,14 @@
-"""State carried between frameworks as numpy arrays.
+"""State and weights carried between frameworks as numpy arrays.
 
 The parity tests seed a torch step from exactly the state a JAX step saw:
 ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}`` goes in, a
-torch container comes out, and the ``*_to_numpy`` inverses go back.  Keys
-are the JAX package's field names; a ``FrontendState``'s ``tracks`` entry is
-itself such a dict (or the JAX ``TrackState``).  The main path does not use
-this module.
+torch container comes out on the ``device`` the caller names, and the
+``*_to_numpy`` inverses go back.  Keys are the JAX package's field names; a
+``FrontendState``'s ``tracks`` entry is itself such a dict (or the JAX
+``TrackState``).  The JAX package's uint32 descriptor words become the
+port's int32 words by reinterpreting their bits (``.view``), never by a
+cast.  The main path uses only :func:`calc_params_from_flax`, to load the
+shipped CALC weights.
 """
 
 from __future__ import annotations
@@ -16,19 +19,22 @@ import numpy as np
 import torch
 
 from stereoslam_tpu_torch.config import SlamConfig
-from stereoslam_tpu_torch.core.state import FrontendState, MapState, TrackState
+from stereoslam_tpu_torch.core.state import FrontendState, LoopState, MapState, TrackState
 from stereoslam_tpu_torch.ops.camera import Intrinsics
 
 
 def _tensor(v, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(v, copy=True)).to(device)
+    a = np.array(v, copy=True)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
 
 
 def _fields(d: Any) -> Mapping[str, Any]:
     return d._asdict() if hasattr(d, "_asdict") else d
 
 
-def frontend_state_from_numpy(d: Mapping[str, Any], device="cpu") -> FrontendState:
+def frontend_state_from_numpy(d: Mapping[str, Any], device) -> FrontendState:
     d = _fields(d)
     tracks = _fields(d["tracks"])
     return FrontendState(
@@ -43,7 +49,7 @@ def frontend_state_to_numpy(fs: FrontendState) -> Dict[str, Any]:
     return out
 
 
-def map_state_from_numpy(d: Mapping[str, Any], device="cpu") -> MapState:
+def map_state_from_numpy(d: Mapping[str, Any], device) -> MapState:
     d = _fields(d)
     return MapState(**{k: _tensor(d[k], device) for k in MapState._fields})
 
@@ -52,7 +58,35 @@ def map_state_to_numpy(m: MapState) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in m._asdict().items()}
 
 
-def pyramid_from_numpy(levels: Sequence[Any], device="cpu") -> Tuple[torch.Tensor, ...]:
+def loop_state_from_numpy(d: Mapping[str, Any], device) -> LoopState:
+    d = _fields(d)
+    return LoopState(**{k: _tensor(d[k], device) for k in LoopState._fields})
+
+
+def loop_state_to_numpy(lp: LoopState) -> Dict[str, np.ndarray]:
+    """``orb_desc`` comes back as the port's int32 words; ``.view(np.uint32)``
+    gives the JAX package's words."""
+    return {k: v.cpu().numpy() for k, v in lp._asdict().items()}
+
+
+def calc_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax ``CalcEncoder`` variables dict (``{"params": {"conv1":
+    {"kernel", "bias"}, ...}}``, numpy or JAX leaves) -> the port's
+    ``CalcEncoder`` state dict: HWIO kernels become OIHW, the (in, out) dense
+    kernel becomes the (out, in) ``Linear`` weight; the flatten before it is
+    NHWC in both."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("conv1", "conv2", "conv3"):
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p[name]["kernel"], np.float32).transpose(3, 2, 0, 1)))
+        out[f"{name}.bias"] = torch.from_numpy(np.asarray(p[name]["bias"], np.float32).copy())
+    out["proj.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(p["proj"]["kernel"], np.float32).T))
+    return out
+
+
+def pyramid_from_numpy(levels: Sequence[Any], device) -> Tuple[torch.Tensor, ...]:
     return tuple(_tensor(lvl, device) for lvl in levels)
 
 

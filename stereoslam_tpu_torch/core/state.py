@@ -5,8 +5,6 @@ the JAX package's field names, shapes and dtypes (counters are 0-dim int32
 tensors).  Id conventions: landmark/keyframe slot index == id, ``-1`` means
 "no link".  Pipeline stages are functions ``state -> state`` that return new
 tensors and leave their inputs untouched.
-
-The loop-closure database (``LoopState``) arrives with the loop-closing port.
 """
 
 from __future__ import annotations
@@ -75,6 +73,20 @@ class MapState(NamedTuple):
         return self.lm_valid.shape[0]
 
 
+class LoopState(NamedTuple):
+    """Loop-closure keyframe database (reference loopclosing.h:109-117 and
+    the per-KF descriptors of keyframe.h:49-52).  ``orb_desc`` holds the
+    uint32 descriptor words of the JAX package as int32 with the same bits."""
+
+    deep_db: torch.Tensor         # (K, D) f32 — L2-normalized global descriptors
+    db_valid: torch.Tensor        # (K,) bool — inserted into the search database
+    orb_desc: torch.Tensor        # (K, M, 8) i32 — pyramid-expanded BRIEF words
+    orb_xy: torch.Tensor          # (K, M, 2) f32 — keypoint positions (level-0 frame)
+    orb_class: torch.Tensor       # (K, M) i32 — class id = source feature slot
+    orb_valid: torch.Tensor       # (K, M) bool
+    last_closed_kf: torch.Tensor  # () i32 — id of the last closed KF (cooldown)
+
+
 def _i32(v: int, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.int32, device=device)
 
@@ -130,8 +142,22 @@ def init_map_state(cfg: SlamConfig, device) -> MapState:
     )
 
 
-def init_all(cfg: SlamConfig, device) -> Tuple[FrontendState, MapState]:
-    return init_frontend_state(cfg, device), init_map_state(cfg, device)
+def init_loop_state(cfg: SlamConfig, device) -> LoopState:
+    K, D = cfg.map.max_keyframes, cfg.loop.descriptor_dim
+    M = cfg.features.max_features * cfg.features.n_levels
+    return LoopState(
+        deep_db=torch.zeros((K, D), dtype=torch.float32, device=device),
+        db_valid=torch.zeros((K,), dtype=torch.bool, device=device),
+        orb_desc=torch.zeros((K, M, 8), dtype=torch.int32, device=device),
+        orb_xy=torch.zeros((K, M, 2), dtype=torch.float32, device=device),
+        orb_class=torch.full((K, M), -1, dtype=torch.int32, device=device),
+        orb_valid=torch.zeros((K, M), dtype=torch.bool, device=device),
+        last_closed_kf=_i32(-(10 ** 6), device),
+    )
+
+
+def init_all(cfg: SlamConfig, device) -> Tuple[FrontendState, MapState, LoopState]:
+    return init_frontend_state(cfg, device), init_map_state(cfg, device), init_loop_state(cfg, device)
 
 
 # ---------------------------------------------------------------------------

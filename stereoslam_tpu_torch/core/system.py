@@ -1,11 +1,15 @@
-"""System facade: construction, per-frame stepping, and result export
-(port of the visual-odometry part of ``stereoslam_tpu/core/system.py``).
+"""System facade: construction, per-frame stepping, loop closing and result
+export (port of ``stereoslam_tpu/core/system.py``).
 
 The counterpart of the reference ``System`` class (reference
 src/system.cpp:18-97).  Frame outcomes are read back synchronously after
 every frame — the JAX package's CPU semantics (readback lag 0) — so LOST is
-reported on the frame that lost.  Loop closing, chunked dispatch,
-checkpoints and the asynchronous BA path are not ported yet.
+reported on the frame that lost.  Loop detection of a keyframe is enqueued
+at that keyframe and resolved (verified, corrected) at the next one, before
+its own detection starts, or when a public read drains the queue: the JAX
+package's order whenever a verdict has landed by the next keyframe, which
+makes a run a deterministic function of its frames.  Undistortion, chunked
+dispatch, checkpoints and the asynchronous BA path are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from stereoslam_tpu_torch.config import SlamConfig
 from stereoslam_tpu_torch.core import backend as backend_mod
 from stereoslam_tpu_torch.core import frontend as frontend_mod
+from stereoslam_tpu_torch.core import loopclosing as loop_mod
 from stereoslam_tpu_torch.core.maintenance import compact_landmarks
 from stereoslam_tpu_torch.core.state import INITING, LOST, TRACKING_GOOD, init_all
 from stereoslam_tpu_torch.ops.camera import Intrinsics
@@ -30,7 +35,7 @@ log = logging.getLogger(__name__)
 
 
 class StereoSlam:
-    """End-to-end stereo visual odometry with windowed BA.
+    """End-to-end stereo SLAM: visual odometry, windowed BA, loop closing.
 
     Usage::
 
@@ -46,30 +51,32 @@ class StereoSlam:
         cfg: SlamConfig,
         device="cuda",
         enable_backend: bool = True,
-        enable_loop: bool = False,
+        enable_loop: bool = True,
         inline_ba: bool = True,
+        descriptor_model=None,
     ):
         """``device``: where every tensor of the state lives, the card unless
         the caller asks for ``"cpu"`` (which runs the plain versions of the
         kernels).
         ``inline_ba``: run windowed BA inside the keyframe branch of the frame
-        step; False runs it right after each keyframe frame."""
+        step; False runs it right after each keyframe frame.
+        ``descriptor_model``: the loop closer's whole-image descriptor
+        (default: the shipped trained CALC weights, else HOG)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StereoSlam runs on the card by default and no CUDA device is "
                                "available: pass device='cpu' to run on the CPU")
-        if enable_loop:
-            raise NotImplementedError("loop closing is not ported to stereoslam_tpu_torch yet")
         if cfg.camera.need_undistortion:
             raise NotImplementedError("undistortion is not ported to stereoslam_tpu_torch yet")
         cfg.validate()
         self.cfg = cfg
         self.enable_backend = enable_backend
+        self.enable_loop = enable_loop
         cam = cfg.camera
         self.intr_left = Intrinsics.create(cam.fx, cam.fy, cam.cx, cam.cy)
         self.intr_right = Intrinsics.create(cam.fx_right, cam.fy_right, cam.cx_right, cam.cy_right)
         self.baseline = cam.baseline
-        self.fs, self.map = init_all(cfg, self.device)
+        self.fs, self.map, self.loop = init_all(cfg, self.device)
         self.inline_ba = inline_ba
         self._ba = partial(backend_mod.optimize_active_map, intr=self.intr_left, cfg=cfg)
         self._pyr_prev = None
@@ -84,6 +91,12 @@ class StereoSlam:
         self._warned_kf_full = False
         self._lm_compact_threshold = int(0.9 * cfg.map.max_landmarks)
         self.compaction_count = 0
+        self._loop_edges: List[Tuple[int, int]] = []
+        # Loop-detection tokens of earlier keyframes, resolved FIFO.
+        self._pending_loops: List = []
+        if enable_loop:
+            self._loop_closer = loop_mod.LoopCloser(cfg, self.intr_left, self.device,
+                                                    descriptor_model=descriptor_model)
 
     # ------------------------------------------------------------------
     def process_frame(self, left: np.ndarray, right: np.ndarray, timestamp: float) -> bool:
@@ -120,8 +133,7 @@ class StereoSlam:
                 self.map = m
                 self._pose_log[frame_idx] = (np.eye(4, dtype=np.float32), kf_id)
                 # The init keyframe's BA runs here even in inline mode.
-                if self.enable_backend:
-                    self.map = self._ba(self.map)
+                self._after_keyframe(left_f32, kf_id, run_ba=self.enable_backend)
                 log.info("stereo init: %d landmarks, KF %d", n_lm, kf_id)
             else:
                 log.info("stereo init failed: only %d landmarks", n_lm)
@@ -138,12 +150,12 @@ class StereoSlam:
         self._frame_count += 1
         # One readback per frame: counts and the KF-relative pose.
         packed = torch.cat([counts.to(torch.float32), fs.T_rk.reshape(-1)]).cpu().numpy()
-        self._retire(frame_idx, packed)
+        self._retire(frame_idx, packed, left_f32)
         return self._status != LOST
 
-    def _retire(self, frame_idx: int, packed: np.ndarray) -> None:
+    def _retire(self, frame_idx: int, packed: np.ndarray, left_f32: torch.Tensor) -> None:
         """Record a frame's outcome: metrics, status, pose log, capacity
-        guards, and the post-keyframe BA when BA is not inline."""
+        guards, and the keyframe work (BA when not inline, loop closing)."""
         n_inliers, n_tracked, status, kf_id, ref_kf, n_lm = (int(x) for x in packed[:6])
         self.metrics["num_inliers"].append(n_inliers)
         self.metrics["num_tracked"].append(n_tracked)
@@ -167,8 +179,47 @@ class StereoSlam:
             if n_freed < self.cfg.map.max_landmarks // 20:
                 log.error("landmark table nearly exhausted even after compaction "
                           "(%d free): raise map.max_landmarks", n_freed)
-        if kf_id >= 0 and self.enable_backend and not self.inline_ba:
+        if kf_id >= 0:
+            self._after_keyframe(left_f32, kf_id,
+                                 run_ba=self.enable_backend and not self.inline_ba)
+
+    # ------------------------------------------------------------------
+    def _after_keyframe(self, left_f32: torch.Tensor, kf_id: int, run_ba: bool) -> None:
+        """The work of the reference's backend and loop threads for a new
+        keyframe (backend.cpp:74-103, loopclosing.cpp:52-80): descriptors,
+        BA, then loop closing."""
+        if self.enable_loop:
+            self.loop = self._loop_closer.process_keyframe(self.map, self.loop, left_f32, kf_id)
+        if run_ba:
             self.map = self._ba(self.map)
+        if self.enable_loop:
+            # The previous keyframes' detections resolve before this one's starts.
+            self._drain()
+            token = self._loop_closer.start_detect(self.loop, kf_id)
+            if token is not None:
+                self._pending_loops.append(token)
+
+    def _drain(self) -> None:
+        """Resolve the pending loop decisions, oldest first (before a
+        keyframe's own detection, and before public reads of the map)."""
+        while self._pending_loops:
+            self._flush_one_loop(self._pending_loops.pop(0))
+
+    def _flush_one_loop(self, token) -> None:
+        kf_id = token[1]
+        self.map, self.loop, closed, loop_kf = self._loop_closer.finish_detect(
+            self.map, self.loop, token)
+        if not closed:
+            return
+        self._loop_edges.append((kf_id, int(loop_kf)))
+        # The frontend pose is KF-relative, so the corrected KF pose carries
+        # over; the landmark merge is applied to the live tracks, then links
+        # the correction left inconsistent are dropped.
+        tracks = self.fs.tracks._replace(lm_idx=self._loop_closer.remap_tracks(self.fs.tracks.lm_idx))
+        tracks, _ = loop_mod.post_correction_unlink(tracks, self.fs.T_rk, self.fs.ref_kf,
+                                                    self.map, self.intr_left)
+        self.fs = self.fs._replace(tracks=tracks)
+        log.info("loop closed: KF %d -> KF %d", kf_id, int(loop_kf))
 
     # ------------------------------------------------------------------
     @property
@@ -184,7 +235,9 @@ class StereoSlam:
 
     def frame_trajectory(self) -> Tuple[np.ndarray, np.ndarray]:
         """(frame_ids, T_cw) for every tracked frame, each frame's relative
-        pose composed with its reference KF's final (BA-refined) pose."""
+        pose composed with its reference KF's final (BA-refined, loop-
+        corrected) pose."""
+        self._drain()
         ids = np.array(sorted(self._pose_log), dtype=np.int64)
         if ids.size == 0:
             return ids, np.zeros((0, 4, 4), np.float64)
@@ -194,6 +247,7 @@ class StereoSlam:
 
     def keyframe_trajectory(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(kf_ids, timestamps, T_cw) for all valid keyframes."""
+        self._drain()
         n = int(self.map.n_kf)
         ts_dev = self.map.kf_timestamp[:n].cpu().numpy()
         fid = self.map.kf_frame_id[:n].cpu().numpy()
@@ -204,3 +258,14 @@ class StereoSlam:
     def save_trajectory(self, path: str) -> None:
         ids, ts, T = self.keyframe_trajectory()
         traj_io.save_trajectory(path, ids, ts, T)
+
+    def save_loop_edges(self, path: str) -> None:
+        """Two keyframe pose lines per loop edge (system.cpp:203-220)."""
+        ids, ts, T = self.keyframe_trajectory()
+        traj_io.save_loop_edges(path, self._loop_edges, ids, ts, T)
+
+    @property
+    def loop_edges(self) -> List[Tuple[int, int]]:
+        """(current KF, loop KF) of every closed loop."""
+        self._drain()
+        return list(self._loop_edges)

@@ -158,6 +158,19 @@ def detect_keypoints(
     return Keypoints(xy=xy, score=torch.where(valid, resp, torch.zeros_like(resp)), valid=valid)
 
 
+def fast_corner_check_at(img: torch.Tensor, xy: torch.Tensor, threshold: float) -> torch.Tensor:
+    """FAST-9 cornerness at sparse (x, y) positions only (reference
+    isFastCorner, ORBextractor.cpp:449-511): the 16-pixel ring of each
+    rounded position, with the centre clamped 3 px inside the image, gathered
+    from the 7x7 patch around it.  Returns (N,) bool."""
+    from stereoslam_tpu_torch.ops.image import patch_at
+
+    patches = patch_at(img, xy, 3)                       # (N, 7, 7), centre at (3, 3)
+    ring = torch.stack([patches[:, 3 + dy, 3 + dx] for (dx, dy) in _CIRCLE], dim=0)
+    d = ring - patches[None, :, 3, 3]
+    return _contiguous_arc(d > threshold) | _contiguous_arc(d < -threshold)
+
+
 def forbid_mask_from_points(
     h: int, w: int, xy: torch.Tensor, valid: torch.Tensor, radius: int = 10
 ) -> torch.Tensor:

@@ -120,13 +120,12 @@ def log(T: torch.Tensor) -> torch.Tensor:
 
 
 def from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Assemble (..., 4, 4) from rotation (..., 3, 3) and translation (..., 3)."""
+    """Assemble (..., 4, 4) from rotation (..., 3, 3) and translation (..., 3).
+    Out of place, so ``torch.func`` transforms can differentiate through it."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    bottom = torch.cat([torch.zeros_like(top[..., :1, :3]), torch.ones_like(top[..., :1, :1])], -1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def identity(batch_shape=(), device=None, dtype=torch.float32) -> torch.Tensor:

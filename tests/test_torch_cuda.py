@@ -1,5 +1,6 @@
-"""The LK kernel on the card against its plain PyTorch version, and the fused
-pyramidal call against the same call composed of per-level launches.
+"""The LK kernel on the card against its plain PyTorch version, the fused
+pyramidal call against the same call composed of per-level launches, and the
+loop-closing modules on the card against the CPU.
 
 CUDA C++ has no CPU mode, so these tests skip where no NVIDIA GPU is.  The
 file imports torch, numpy and the port only (no JAX, which the machine with
@@ -14,7 +15,8 @@ agreement.  ``lk_pyramid`` runs the per-level device code, so it equals the
 composition of per-level launches bit for bit; only the round-trip norm
 (``sqrtf`` in the kernel, ``torch.linalg.norm`` in the composition) may round
 differently, so a status may differ there for a round trip within 1e-5 px of
-the threshold.
+the threshold.  The CALC encoder on the card is held to the CPU within 1e-5
+(float32, TF32 off), descriptor matching exactly.
 """
 
 import numpy as np
@@ -23,6 +25,10 @@ import torch
 
 torch.set_num_threads(2)
 
+from stereoslam_tpu_torch import config as pconfig  # noqa: E402
+from stereoslam_tpu_torch.core.system import StereoSlam  # noqa: E402
+from stereoslam_tpu_torch.models import calc as pcalc  # noqa: E402
+from stereoslam_tpu_torch.ops import hamming as pham  # noqa: E402
 from stereoslam_tpu_torch.ops import lk as plk_pyramid  # noqa: E402
 from stereoslam_tpu_torch.ops import lk_level as plk  # noqa: E402
 from stereoslam_tpu_torch.ops.fast import detect_keypoints  # noqa: E402
@@ -173,3 +179,53 @@ def test_lk_pyramid_wrapper_rejects_what_the_kernel_does_not_take(frames):
         plk_pyramid.lk_pyramid([a] * (plk.MAX_LEVELS + 1), [b] * (plk.MAX_LEVELS + 1), pts, pts)
     with pytest.raises(ValueError):  # pyramids of two depths
         plk_pyramid.lk_pyramid(pa, pb[:2], pts, pts)
+
+
+def test_calc_encoder_on_card_matches_cpu(dev, frames):
+    a = frames[0].cpu()
+    card, cpu = pcalc.DescriptorModel.default(), pcalc.DescriptorModel.default()
+    assert card.params is not None, "the shipped CALC weights are missing"
+    got, ref = card(a.to(dev)).cpu(), cpu(a)
+    assert (got - ref).abs().max().item() <= 1e-5 and float(got @ ref) >= 0.99999
+    hog = pcalc.hog_descriptor(a.to(dev)).cpu()
+    assert (hog - pcalc.hog_descriptor(a)).abs().max().item() <= 1e-5
+
+
+def test_match_descriptors_on_card_matches_cpu(dev):
+    gen = torch.Generator().manual_seed(3)
+    M, N = 3200, 400
+    a = torch.randint(-2 ** 31, 2 ** 31 - 1, (M, 8), generator=gen, dtype=torch.int32)
+    b = torch.cat([a[:1600], torch.randint(-2 ** 31, 2 ** 31 - 1, (M - 1600, 8), generator=gen,
+                                           dtype=torch.int32)])
+    b[:1600, 0] ^= 1 << 7
+    va, vb = torch.rand(M, generator=gen) > 0.2, torch.rand(M, generator=gen) > 0.2
+    cls = torch.arange(M, dtype=torch.int32) % N
+    ref = pham.match_descriptors(a, va, b, vb, cls, cls, N)
+    got = pham.match_descriptors(a.to(dev), va.to(dev), b.to(dev), vb.to(dev), cls.to(dev),
+                                 cls.to(dev), N)
+    for x, y in zip(got, ref):
+        assert torch.equal(x.cpu(), y)
+    assert int(ref.accepted.sum()) > 100
+
+
+def test_short_loop_run_builds_loop_state_on_card(dev):
+    seq = generate_sequence(n_frames=24, loop_frames=120, trajectory="loop", speed=0.35, seed=7,
+                            n_points=900)
+    cfg = pconfig.SlamConfig(
+        camera=pconfig.CameraConfig(fx=seq.fx, fy=seq.fy, cx=seq.cx, cy=seq.cy, fx_right=seq.fx,
+                                    fy_right=seq.fy, cx_right=seq.cx, cy_right=seq.cy,
+                                    bf=seq.fx * seq.baseline),
+        features=pconfig.FeatureConfig(n_init_features=200, n_new_features=100, max_features=256,
+                                       num_features_init_good=50, num_features_tracking_good=50,
+                                       num_features_tracking_bad=10),
+        image_height=seq.left.shape[1], image_width=seq.left.shape[2],
+    )
+    slam = StereoSlam(cfg, device=dev, enable_loop=True, descriptor_model=pcalc.DescriptorModel())
+    for t in range(len(seq.left)):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+    slam.keyframe_trajectory()
+    assert all(t.device.type == "cuda" for t in slam.loop)
+    assert slam.loop.orb_desc.shape == (cfg.map.max_keyframes, 256 * 8, 8)
+    n_db = int(slam.loop.db_valid.sum())
+    assert n_db >= 2 and bool(slam.loop.orb_valid[0].any())
+    assert float(slam.loop.deep_db[0].norm()) == pytest.approx(1.0, abs=1e-5)

@@ -84,8 +84,8 @@ def _torch_frame(run, t, cfg=None):
     lr = torch.from_numpy(np.stack([seq.left[t], seq.right[t]]).astype(np.uint8))
     ba = functools.partial(pbackend.optimize_active_map, intr=intr_l, cfg=cfg)
     return pfrontend.frame_step(
-        lr[0].float(), lambda: lr[1].float(), bridge.pyramid_from_numpy(pyr_np),
-        bridge.frontend_state_from_numpy(fs_np), bridge.map_state_from_numpy(m_np),
+        lr[0].float(), lambda: lr[1].float(), bridge.pyramid_from_numpy(pyr_np, "cpu"),
+        bridge.frontend_state_from_numpy(fs_np, "cpu"), bridge.map_state_from_numpy(m_np, "cpu"),
         intr_l, intr_r, cfg.camera.baseline, torch.tensor(seq.timestamps[t], dtype=torch.float32),
         cfg, ba_fn=ba,
     )
@@ -141,7 +141,7 @@ def test_stereo_init_from_bridged_state(run):
     right = torch.from_numpy(seq.right[0].astype(np.uint8)).float()
     fs, m, kf_id, n_lm = pfrontend.stereo_init_step(
         left, build_lk_pyramid(left, 3), build_lk_pyramid(right, 3),
-        bridge.frontend_state_from_numpy(fs0), bridge.map_state_from_numpy(m0),
+        bridge.frontend_state_from_numpy(fs0, "cpu"), bridge.map_state_from_numpy(m0, "cpu"),
         intr_l, intr_r, cfg.camera.baseline, torch.tensor(0.0), cfg)
     # The JAX init keyframe's map before its host-side BA is not kept, so
     # compare what BA does not touch: tracks, landmark count and KF row.
@@ -176,7 +176,7 @@ def test_backend_ba_from_bridged_map(run, window):
         type(run["slam"].map)(**{k: jnp.asarray(v) for k, v in m_np.items()}))
     mj = type(mj)(*(np.asarray(v) for v in mj))
     intr_l, _ = bridge.intrinsics_from_config(cfg)
-    mp = pbackend.optimize_active_map(bridge.map_state_from_numpy(m_np), intr_l, cfg)
+    mp = pbackend.optimize_active_map(bridge.map_state_from_numpy(m_np, "cpu"), intr_l, cfg)
     win = m_np["active_kf"][m_np["active_kf"] >= 0]
     np.testing.assert_allclose(mp.kf_T_cw.numpy()[win], np.asarray(mj.kf_T_cw)[win], atol=1e-4,
                                rtol=0)

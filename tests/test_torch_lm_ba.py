@@ -145,10 +145,11 @@ def test_compact_landmarks_matches(rng):
         lm_idx=jnp.asarray(rng.integers(-1, n_lm, cfg.features.max_features).astype(np.int32)))
     mj, tj, fj = jmaint.compact_landmarks(m, tr)
     mp, tp, fp = pmaint.compact_landmarks(
-        bridge.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()}),
+        bridge.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()}, "cpu"),
         bridge.frontend_state_from_numpy(dict(
             {k: np.asarray(v) for k, v in jstate.init_frontend_state(JCfg())._asdict().items()
-             if k != "tracks"}, tracks={k: np.asarray(v) for k, v in tr._asdict().items()})).tracks,
+             if k != "tracks"}, tracks={k: np.asarray(v) for k, v in tr._asdict().items()}),
+            "cpu").tracks,
     )
     for k, v in bridge.map_state_to_numpy(mp).items():
         np.testing.assert_array_equal(np.asarray(getattr(mj, k)), v, err_msg=k)

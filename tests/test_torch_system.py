@@ -2,7 +2,8 @@
 40-frame synthetic sequence of tests/test_system_vo.py, held to that test's
 bounds (no LOST, ATE < 0.5 m with align=False, >= 2 keyframes, > 100
 landmarks), plus the facade's init retry, LOST, export and capacity guards,
-and its default device (the card).
+and its default device (the card).  These runs pass ``enable_loop=False``, as
+the JAX VO tests do: loop closing is on by default.
 """
 
 import dataclasses
@@ -45,7 +46,7 @@ def seq():
 
 
 def run_vo(seq, n_frames=None, **kw):
-    slam = StereoSlam(make_cfg(seq), device="cpu", **kw)
+    slam = StereoSlam(make_cfg(seq), device="cpu", enable_loop=False, **kw)
     est = []
     for t in range(n_frames or len(seq.left)):
         assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t]), f"LOST at {t}"
@@ -95,7 +96,7 @@ def test_vo_without_inline_ba(seq, enable_backend, inline_ba):
 
 
 def test_init_retry_and_lost_on_black_frames(seq):
-    slam = StereoSlam(make_cfg(seq), device="cpu", enable_backend=False)
+    slam = StereoSlam(make_cfg(seq), device="cpu", enable_backend=False, enable_loop=False)
     black = np.zeros_like(seq.left[0])
     assert slam.process_frame(black, black, 0.0)          # init fails: stays INITING
     assert slam.status == INITING and int(slam.map.n_kf) == 0
@@ -111,14 +112,15 @@ def test_capacity_guards(seq, caplog):
     """A full keyframe table saturates loudly and tracking goes on; landmark
     pressure above 90% compacts the table."""
     cfg = make_cfg(seq, max_kf=2, max_lm=700)
-    slam = StereoSlam(cfg, device="cpu", enable_backend=False)
+    slam = StereoSlam(cfg, device="cpu", enable_backend=False, enable_loop=False)
     for t in range(16):
         assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
     assert int(slam.map.n_kf) == 2
     assert any("keyframe table FULL" in r.message for r in caplog.records)
     # The run holds 233 landmarks after its third keyframe (frame 14) and
     # wants 250 after its fourth: a 240-row table crosses 90% at both.
-    slam2 = StereoSlam(make_cfg(seq, max_lm=240), device="cpu", enable_backend=True)
+    slam2 = StereoSlam(make_cfg(seq, max_lm=240), device="cpu", enable_backend=True,
+                       enable_loop=False)
     for t in range(24):
         assert slam2.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
     assert slam2.compaction_count >= 1
@@ -129,19 +131,25 @@ def test_default_device_is_the_card(seq):
     """The entry point runs on the card unless the caller asks for the CPU;
     with no card it refuses at once instead of carrying on on the CPU."""
     if torch.cuda.is_available():
-        assert StereoSlam(make_cfg(seq)).device.type == "cuda"
+        assert StereoSlam(make_cfg(seq), enable_loop=False).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            StereoSlam(make_cfg(seq))
-    slam = StereoSlam(make_cfg(seq), device="cpu", enable_backend=False)
+            StereoSlam(make_cfg(seq), enable_loop=False)
+    slam = StereoSlam(make_cfg(seq), device="cpu", enable_backend=False, enable_loop=False)
     assert slam.device.type == "cpu" and slam.map.lm_pos.device.type == "cpu"
     assert slam.process_frame(seq.left[0], seq.right[0], seq.timestamps[0])
 
 
 def test_unported_options_raise(seq):
+    """Undistortion and the Caffe CALC importer still raise; loop closing
+    itself constructs (and is on by default)."""
     cfg = make_cfg(seq)
-    with pytest.raises(NotImplementedError):
-        StereoSlam(cfg, device="cpu", enable_loop=True)
+    assert StereoSlam(cfg, device="cpu").enable_loop
+    caffe = cfg.replace(loop=dataclasses.replace(cfg.loop, caffe_prototxt="deploy.prototxt",
+                                                 caffe_weights="calc.caffemodel"))
+    with pytest.raises(NotImplementedError, match="Caffe"):
+        StereoSlam(caffe, device="cpu")
+    assert not StereoSlam(caffe, device="cpu", enable_loop=False).enable_loop
     undist = cfg.replace(camera=dataclasses.replace(cfg.camera, need_undistortion=True, k1=-0.1))
     with pytest.raises(NotImplementedError):
         StereoSlam(undist, device="cpu")
