@@ -16,7 +16,9 @@ counterpart is easy to find:
               compaction, the loop closer and the ``StereoSlam`` facade (on
               the card unless the caller passes ``device="cpu"``).
 - ``utils/``  numpy-only trajectory export, metrics and the synthetic
-              sequence generator.
+              sequence generator; the ray-cast world renderer, the device
+              feed and checkpoints.
+- ``eval``    the world-circuit evaluation (``run_world_eval``).
 - ``bridge``  numpy <-> torch state and CALC-weight converters.
 
 The package never imports jax: it has to run where JAX is not installed.

@@ -7,8 +7,9 @@ torch container comes out on the ``device`` the caller names, and the
 ``FrontendState``'s ``tracks`` entry is itself such a dict (or the JAX
 ``TrackState``).  The JAX package's uint32 descriptor words become the
 port's int32 words by reinterpreting their bits (``.view``), never by a
-cast.  The main path uses only :func:`calc_params_from_flax`, to load the
-shipped CALC weights.
+cast.  The main path uses :func:`calc_params_from_flax`, to load the
+shipped CALC weights, and checkpoints (``utils/checkpoint.py``) go through
+the state converters.
 """
 
 from __future__ import annotations

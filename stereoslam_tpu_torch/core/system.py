@@ -9,12 +9,13 @@ at that keyframe and resolved (verified, corrected) at the next one, before
 its own detection starts, or when a public read drains the queue: the JAX
 package's order whenever a verdict has landed by the next keyframe, which
 makes a run a deterministic function of its frames.  Undistortion, chunked
-dispatch, checkpoints and the asynchronous BA path are not ported yet.
+dispatch and the asynchronous BA path are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from functools import partial
 from typing import Dict, List, Tuple
 
@@ -29,6 +30,7 @@ from stereoslam_tpu_torch.core.maintenance import compact_landmarks
 from stereoslam_tpu_torch.core.state import INITING, LOST, TRACKING_GOOD, init_all
 from stereoslam_tpu_torch.ops.camera import Intrinsics
 from stereoslam_tpu_torch.ops.image import build_lk_pyramid
+from stereoslam_tpu_torch.utils import checkpoint as ckpt
 from stereoslam_tpu_torch.utils import trajectory as traj_io
 
 log = logging.getLogger(__name__)
@@ -88,6 +90,10 @@ class StereoSlam:
         # frame_trajectory().
         self._pose_log: Dict[int, Tuple[np.ndarray, int]] = {}
         self.metrics: Dict[str, List[int]] = {"num_inliers": [], "num_tracked": []}
+        # Wall time of each process_staged call, entry to return.  Outcomes
+        # are read back synchronously (readback lag 0), so this is the
+        # frame's whole latency, its device work included.
+        self.frame_latency_ms: List[float] = []
         self._warned_kf_full = False
         self._lm_compact_threshold = int(0.9 * cfg.map.max_landmarks)
         self.compaction_count = 0
@@ -112,6 +118,12 @@ class StereoSlam:
         lies on the device."""
         if self._status == LOST:
             return False
+        t0 = time.perf_counter()
+        ok = self._step(lr_u8, timestamp)
+        self.frame_latency_ms.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def _step(self, lr_u8: torch.Tensor, timestamp: float) -> bool:
         frame_idx = self._frame_count
         self._ts_by_frame[frame_idx] = float(timestamp)
         ts = torch.tensor(timestamp, dtype=torch.float32, device=self.device)
@@ -269,3 +281,37 @@ class StereoSlam:
         """(current KF, loop KF) of every closed loop."""
         self._drain()
         return list(self._loop_edges)
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> str:
+        """Snapshot the full SLAM state (map, tracks, loop database and the
+        previous frame's pyramid) in the JAX package's layout, after
+        resolving pending loop decisions.  The keyframes' exact float64
+        timestamps ride along as ``facade.kf_timestamp``."""
+        self._drain()
+        fs = self.fs._replace(status=torch.tensor(self._status, dtype=torch.int32,
+                                                  device=self.device))
+        _, ts, _ = self.keyframe_trajectory()
+        return ckpt.save_checkpoint(path, fs, self.map, self.loop, pyr=self._pyr_prev,
+                                    extra={"facade.kf_timestamp": ts})
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a checkpoint of either package.  The loop closer's
+        host-side counters are re-synced from the loaded state and the loop
+        edges are read from its keyframe table; the PnP generator's state is
+        not part of a checkpoint (nor is the JAX closer's PRNG key), so
+        verifications after a resume draw other minimal sets."""
+        self.fs, self.map, self.loop, self._pyr_prev, extra = ckpt.load_checkpoint(
+            path, self.device)
+        self._status = int(self.fs.status)
+        self._frame_count = int(self.fs.frame_id) + 1
+        self._pending_loops = []
+        n = int(self.map.n_kf)
+        kf_loop = self.map.kf_loop[:n].cpu().numpy()
+        self._loop_edges = [(int(k), int(lp)) for k, lp in enumerate(kf_loop) if lp >= 0]
+        ts = extra.get("facade.kf_timestamp")
+        if ts is not None:
+            fid = self.map.kf_frame_id[:n].cpu().numpy()
+            self._ts_by_frame.update({int(f): float(t) for f, t in zip(fid, ts)})
+        if self.enable_loop:
+            self._loop_closer.sync_host_counters(self.loop)

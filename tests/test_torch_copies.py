@@ -17,10 +17,12 @@ from stereoslam_tpu import config as jax_config  # noqa: E402
 from stereoslam_tpu.utils import metrics as jax_metrics  # noqa: E402
 from stereoslam_tpu.utils import synthetic as jax_synthetic  # noqa: E402
 from stereoslam_tpu.utils import trajectory as jax_trajectory  # noqa: E402
+from stereoslam_tpu.utils import world as jax_world  # noqa: E402
 from stereoslam_tpu_torch import config as pt_config  # noqa: E402
 from stereoslam_tpu_torch.utils import metrics as pt_metrics  # noqa: E402
 from stereoslam_tpu_torch.utils import synthetic as pt_synthetic  # noqa: E402
 from stereoslam_tpu_torch.utils import trajectory as pt_trajectory  # noqa: E402
+from stereoslam_tpu_torch.utils import world as pt_world  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((REPO / "config").glob("KITTI*.yaml"))
@@ -57,6 +59,32 @@ def test_synthetic_copy_is_bit_equal(trajectory):
         assert getattr(a, f) == getattr(b, f)
 
 
+@pytest.mark.parametrize("seed,length,width,radius", [(1, 90.0, 50.0, 14.0), (5, 48.0, 32.0, 10.0)])
+def test_world_scene_and_trajectory_copies_are_equal(seed, length, width, radius):
+    a = jax_world.make_city_circuit(length, width, corner_radius=radius, seed=seed)
+    b = pt_world.make_city_circuit(length, width, corner_radius=radius, seed=seed)
+    assert a.quads._fields == b.quads._fields
+    for name, x, y in zip(a.quads._fields, a.quads, b.quads):
+        x = np.asarray(x)
+        assert x.dtype == y.dtype and x.shape == y.shape == (128,) + x.shape[1:], name
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    np.testing.assert_array_equal(a.centerline, b.centerline)
+    assert a.perimeter == b.perimeter
+    for step in (0.8, 0.9):
+        assert jax_world.frames_per_lap(step, length, width, radius) == pt_world.frames_per_lap(
+            step, length, width, radius)
+        kw = dict(n_frames=700, step=step, length=length, width=width, corner_radius=radius)
+        np.testing.assert_array_equal(jax_world.circuit_poses(**kw), pt_world.circuit_poses(**kw))
+    s = np.linspace(-10.0, 400.0, 997)
+    np.testing.assert_array_equal(jax_world._corner_speed(s, length, width, radius, 0.55, 4.0),
+                                  pt_world._corner_speed(s, length, width, radius, 0.55, 4.0))
+    for x, y in zip(jax_world._rounded_rect_pose(s, length, width, radius),
+                    pt_world._rounded_rect_pose(s, length, width, radius)):
+        np.testing.assert_array_equal(x, y)
+    assert [f.name for f in dataclasses.fields(jax_world.WorldSequence)] == [
+        f.name for f in dataclasses.fields(pt_world.WorldSequence)]
+
+
 def test_metrics_copy_agrees(rng):
     def poses(n):
         T = np.tile(np.eye(4), (n, 1, 1))
@@ -89,6 +117,8 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['stereoslam_tpu'] = None\n"
         "import stereoslam_tpu_torch, stereoslam_tpu_torch.bridge\n"
         "import stereoslam_tpu_torch.core.system, stereoslam_tpu_torch.ops.lk_level, chip_smoke\n"
+        "import stereoslam_tpu_torch.eval, stereoslam_tpu_torch.utils.world\n"
+        "import stereoslam_tpu_torch.utils.feed, stereoslam_tpu_torch.utils.checkpoint\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
