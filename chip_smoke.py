@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # the full run: VO, CALC, loop-closing and world phases
+    python3 chip_smoke.py                # the full run: VO, CLI, CALC, loop-closing and world phases
     python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
 
 Phases, each printing its lines and stopping the run with a non-zero exit on
@@ -25,11 +25,24 @@ failure:
              trajectory error against ground truth (and that they repeat the
              port's known run), that every tracked frame went through
              ``lk_pyramid`` and that no per-level entry was launched.
-5. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
+5. cli     — the user's entry point, ``stereoslam_tpu_torch.run``: writes phase
+             main's 100 frames as a KITTI directory (8-bit grey PNGs by a
+             stdlib writer, ``times.txt``, a poses file, the config as
+             OpenCV YAML, which must load back equal to phase main's);
+             decodes it through the native loader where g++ and libpng are
+             installed, else through ``kitti.frames``' fallback, bit-equal to
+             the frames written; runs the CLI in-process (VO only, ``--gt``)
+             and checks its ``trajectory.txt`` byte-equal to phase main's,
+             its logged ATE equal to phase main's keyframe ATE, and its
+             ``lk_pyramid`` launches; runs ``python3 -m
+             stereoslam_tpu_torch.run`` with the default flags (loop closing
+             with trained CALC) on 40 frames as a subprocess and checks its
+             files; checks phase main's profiler records.
+6. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
              and the HOG descriptor on one 376x1241 keyframe image, on the
              card against the same module on the CPU (float32, TF32 off),
              with each one's device time per call.
-6. loop    — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
+7. loop    — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
              descriptor over a closed blob-world circuit at KITTI geometry,
              with the full-size state (400 features x 8 ORB levels, 1536
              keyframe rows, 131,072 landmark rows); checks no LOST, a true
@@ -37,7 +50,7 @@ failure:
              through ``lk_pyramid``, and that the run repeats the port's
              known one; prints FPS, per-stage keyframe times and PGO
              iterations.
-7. world   — the canonical 548-frame world circuit of ``run_world_eval``
+8. world   — the canonical 548-frame world circuit of ``run_world_eval``
              (240x376, trained CALC at the shipped 0.94/0.92 thresholds):
              renders it on the card and holds four frames of each camera to
              the CPU render; checks ``DeviceFeed`` over 50 host frames; runs
@@ -51,7 +64,7 @@ failure:
              and border calls); round-trips the final state through a
              checkpoint into a fresh ``StereoSlam``; prints FPS, p50, ATE,
              edges and per-stage keyframe times.
-8. profile — with ``--profile N``: device busy share, the top kernels, the
+9. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame.
 
 Each phase prints ``phase <name>: start`` and ``phase <name>: done in <s> s``;
@@ -64,9 +77,20 @@ imported.
 from __future__ import annotations
 
 import argparse
+import binascii
+import dataclasses
+import importlib.util
 import json
+import logging
+import os
+import re
+import struct
 import subprocess
+import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -236,8 +260,6 @@ def loop_config(seq):
     """KITTI geometry with the default feature and map sizes and the loop
     settings of tests/test_system_loop.py's loop_cfg, its similarity
     thresholds re-tuned to this geometry."""
-    import dataclasses
-
     from stereoslam_tpu_torch.config import LoopClosingConfig
 
     cfg = kitti_config(seq)
@@ -541,7 +563,7 @@ def phase_kernels(dev, seq, card: str):
     }
 
 
-def phase_main(dev, seq, card: str):
+def phase_main(dev, seq, work: Path, card: str):
     from stereoslam_tpu_torch.core.system import StereoSlam
     from stereoslam_tpu_torch.ops import lk as L
     from stereoslam_tpu_torch.ops import lk_level as K
@@ -599,7 +621,251 @@ def phase_main(dev, seq, card: str):
         fail("main", "repeat", f"(KFs, landmarks, ATE) = {(n_kf, n_lm, round(ate, 4))}, expected "
              f"{EXPECTED_RUN}: "
              f"the run repeats bit for bit, so the code's arithmetic changed")
-    return launches
+    # What phase cli holds the CLI's outputs to.
+    slam.save_trajectory(str(work / "main_trajectory.txt"))
+    return launches, slam
+
+
+# ---------------------------------------------------------------------------
+# Phase cli: the user's entry point over phase main's frames
+# ---------------------------------------------------------------------------
+
+CLI_RUN2_FRAMES = 40
+CLI_RUN2_PLOT_EVERY = 20
+CLI_RUN2_TIMEOUT_S = 600
+
+
+def write_png_gray(path: Path, img: np.ndarray) -> None:
+    """An 8-bit greyscale, non-interlaced PNG (filter 0 on every row), with
+    the standard library only, so that neither cv2 nor PIL is needed."""
+    h, w = img.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", binascii.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.astype(np.uint8)], axis=1)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                     + chunk(b"IEND", b""))
+
+
+def write_kitti_dir(seq, cfg, d: Path) -> None:
+    """Phase main's frames as a KITTI odometry directory: image_0/, image_1/,
+    times.txt (repr floats, so they parse back exactly), a poses file of
+    T_wc rows, and the config as reference-style OpenCV YAML."""
+    for cam, frames in (("image_0", seq.left), ("image_1", seq.right)):
+        (d / cam).mkdir()
+        for i, img in enumerate(frames):
+            write_png_gray(d / cam / f"{i:06d}.png", img)
+    (d / "times.txt").write_text("".join(f"{float(t)!r}\n" for t in seq.timestamps))
+    T_wc = np.linalg.inv(seq.T_cw.astype(np.float64))
+    np.savetxt(d / "poses.txt", T_wc[:, :3, :].reshape(len(T_wc), 12))
+    c = cfg.camera
+    keys = {"Camera.left.fx": c.fx, "Camera.left.fy": c.fy, "Camera.left.cx": c.cx,
+            "Camera.left.cy": c.cy, "Camera.right.fx": c.fx_right,
+            "Camera.right.fy": c.fy_right, "Camera.right.cx": c.cx_right,
+            "Camera.right.cy": c.cy_right, "Camera.bf": c.bf}
+    (d / "config.yaml").write_text(
+        "%YAML:1.0\n" + "".join(f"{k}: {float(v)!r}\n" for k, v in keys.items()))
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages a logger emits."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+
+def check_decode(seq, d: Path) -> str:
+    """The written PNGs decode back bit for bit, in order, through the native
+    loader where it can be built, else through kitti.frames' fallback."""
+    from stereoslam_tpu_torch.native import dataloader
+    from stereoslam_tpu_torch.utils import kitti
+
+    t0 = time.perf_counter()
+    try:
+        dataloader.library()
+    except dataloader.ToolchainMissing as e:
+        route = "kitti.frames fallback (read_gray)"
+        print(f"cli: native loader not built, g++ or libpng missing: {e}; holding the "
+              f"fallback decoder instead", flush=True)
+        out = list(kitti.frames(str(d)))
+    except (OSError, RuntimeError) as e:
+        fail("cli", "native build", f"the native loader failed to build or load: {e}")
+    else:
+        route = "native loader"
+        print(f"cli: native loader built and loaded ({dataloader.build_library().name}) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        lp, rp, ts = kitti.load_image_paths(str(d))
+        out = list(dataloader.stream_pairs(lp, rp, ts))
+    dt = time.perf_counter() - t0
+    if len(out) != len(seq.left):
+        fail("cli", "decode", f"{route} yielded {len(out)} pairs, expected {len(seq.left)}")
+    for i, (left, right, ts) in enumerate(out):
+        if not (np.array_equal(left, seq.left[i].astype(np.uint8))
+                and np.array_equal(right, seq.right[i].astype(np.uint8))):
+            fail("cli", "decode", f"{route}: pair {i} differs from the frames written")
+        if float(ts) != float(seq.timestamps[i]):
+            fail("cli", "decode", f"{route}: timestamp {i} is {ts!r}, wrote "
+                 f"{float(seq.timestamps[i])!r}")
+    print(f"cli: {route}: {len(out)} pairs 376x1241 bit-equal to the frames written, in order "
+          f"({dt:.2f} s)", flush=True)
+    return route
+
+
+def check_profiler(slam, seq) -> None:
+    """Phase main's profiler records: one per frame, in order, with the
+    keyframe ids the map holds for keyframes after the init frame."""
+    recs = slam.profiler.frames
+    n = len(seq.left)
+    if [r.frame for r in recs] != list(range(n)):
+        fail("cli", "profiler frames", f"{len(recs)} records, frames {[r.frame for r in recs][:5]}..., "
+             f"expected 0..{n - 1}")
+    if [r.timestamp for r in recs] != [float(t) for t in seq.timestamps]:
+        fail("cli", "profiler timestamps", "record timestamps differ from the sequence's")
+    n_kf = int(slam.map.n_kf)
+    kf_frames = slam.map.kf_frame_id[:n_kf].cpu().numpy().tolist()
+    kf = [(r.keyframe_id, r.frame) for r in recs if r.keyframe_id >= 0]
+    if [k for k, _ in kf] != list(range(1, n_kf)) or [f for _, f in kf] != kf_frames[1:]:
+        fail("cli", "profiler keyframes", f"records' (keyframe_id, frame) {kf} against the map's "
+             f"keyframe frames {kf_frames}")
+    track = slam.profiler.summary().get("track", {})
+    if track.get("count") != n - 1:
+        fail("cli", "profiler track stage", f"'track' timed {track.get('count')} times, expected "
+             f"{n - 1}")
+    print(f"cli: profiler of phase main: {len(recs)} records, {len(kf)} keyframe records "
+          f"matching the map, 'track' mean {track['mean_ms']} ms", flush=True)
+
+
+def phase_cli(dev, seq, main_slam, work: Path, card: str) -> None:
+    from stereoslam_tpu_torch import run as cli
+    from stereoslam_tpu_torch.config import load_config
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+    from stereoslam_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = kitti_config(seq)
+    d = work / "kitti"
+    d.mkdir()
+    t0 = time.perf_counter()
+    write_kitti_dir(seq, cfg, d)
+    print(f"cli: wrote {len(seq.left)} stereo pairs as PNG, times.txt, poses.txt and "
+          f"config.yaml in {time.perf_counter() - t0:.1f} s", flush=True)
+    loaded = dataclasses.asdict(load_config(str(d / "config.yaml")))
+    if loaded != dataclasses.asdict(cfg):
+        diff = {k: (v, dataclasses.asdict(cfg)[k]) for k, v in loaded.items()
+                if v != dataclasses.asdict(cfg)[k]}
+        fail("cli", "config", f"load_config of the written YAML differs from phase main's: {diff}")
+    check_decode(seq, d)
+
+    # Phase main's keyframe ATE, as the CLI computes it (align=True).
+    ids, _, T_cw = main_slam.keyframe_trajectory()
+    fid = main_slam.map.kf_frame_id[:len(ids)].cpu().numpy()
+    main_ate = ate_rmse(np.linalg.inv(T_cw.astype(np.float64)),
+                        np.linalg.inv(seq.T_cw[fid].astype(np.float64)), align=True)
+
+    # Run 1: in-process, VO only, on every frame.
+    out1 = work / "run1"
+    slams = []
+    log_lines = LogLines()
+    pkg_log = logging.getLogger("stereoslam_tpu_torch")
+    pkg_log.addHandler(log_lines)
+    pkg_log.setLevel(logging.INFO)
+    L.lk_pyramid.launches = 0
+    K.lk_level.launches = 0
+    K.lk_final_error.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([str(d / "config.yaml"), str(d), "--output", str(out1), "--no-loop",
+                       "--gt", str(d / "poses.txt"), "--device", str(dev)],
+                      on_slam=slams.append)
+    finally:
+        pkg_log.removeHandler(log_lines)
+        pkg_log.setLevel(logging.WARNING)
+    wall = time.perf_counter() - t0
+    launches = {"lk_pyramid": L.lk_pyramid.launches, "lk_level": K.lk_level.launches,
+                "lk_final_error": K.lk_final_error.launches}
+    if rc != 0:
+        fail("cli", "run 1 exit", f"stereoslam_tpu_torch.run.main returned {rc}")
+    slam = slams[0]
+    n = len(seq.left)
+    tracked = n - 1
+    if len(slam.frame_latency_ms) != n:
+        fail("cli", "run 1 frames", f"the CLI processed {len(slam.frame_latency_ms)} of {n} frames")
+    got, want = (out1 / "trajectory.txt").read_bytes(), (work / "main_trajectory.txt").read_bytes()
+    if got != want:
+        fail("cli", "run 1 trajectory", f"trajectory.txt ({len(got)} bytes) differs from phase "
+             f"main's ({len(want)} bytes): the IO path changed the frames")
+    if (out1 / "loopEdges.txt").read_text() != "":
+        fail("cli", "run 1 loop edges", "loopEdges.txt of a --no-loop run is not empty")
+    ate_lines = [m for m in log_lines.lines if m.startswith("ATE RMSE vs ground truth")]
+    logged = re.match(r"ATE RMSE vs ground truth: (\S+) m", ate_lines[-1]) if ate_lines else None
+    if logged is None or logged.group(1) != f"{main_ate:.3f}":
+        fail("cli", "run 1 ATE", f"logged {ate_lines}, phase main's keyframe ATE is {main_ate:.3f} m")
+    if launches["lk_pyramid"] < tracked:
+        fail("cli", "run 1 launches", f"the CLI path bypassed the LK kernel: {launches}")
+    if launches["lk_level"] or launches["lk_final_error"]:
+        fail("cli", "run 1 launches", f"the CLI path launched the per-level entries: {launches}")
+    avg = [m for m in log_lines.lines if m.startswith("processed ")]
+    decoder = [m for m in log_lines.lines if m.startswith("decoding ")]
+    lat = np.asarray(slam.frame_latency_ms[WARMUP:])
+    main_lat = np.asarray(main_slam.frame_latency_ms[WARMUP:])
+    track = slam.profiler.summary()["track"]
+    print(f"cli: run 1 (in-process, --no-loop --gt, {n} frames): trajectory.txt byte-equal to "
+          f"phase main's, keyframe ATE {logged.group(1)} m (align=True) as phase main's, "
+          f"lk_pyramid launches {launches['lk_pyramid']} ({launches['lk_pyramid'] / tracked:.2f}"
+          f"/tracked frame), per-level launches: lk_level {launches['lk_level']}, "
+          f"lk_final_error {launches['lk_final_error']}; decoder: {decoder}", flush=True)
+    print(f"cli: run 1 speed: the CLI logged '{avg[-1] if avg else None}'; main() returned after "
+          f"{wall:.2f} s; after {WARMUP} warmup frames: {len(lat) / lat.sum() * 1e3:.2f} FPS by "
+          f"process_staged latency (phase main: {len(main_lat) / main_lat.sum() * 1e3:.2f}), "
+          f"p50 {np.median(lat):.2f} ms (phase main {np.median(main_lat):.2f}); profiler 'track' "
+          f"mean {track['mean_ms']} ms over {track['count']} frames [{card}]", flush=True)
+    del slam, slams
+
+    # Run 2: the module entry with the default flags (loop closing with the
+    # trained CALC, backend on, the card), in a process of its own.
+    out2 = work / "run2"
+    plot = importlib.util.find_spec("matplotlib") is not None
+    cmd = [sys.executable, "-m", "stereoslam_tpu_torch.run", str(d / "config.yaml"), str(d),
+           "--max-frames", str(CLI_RUN2_FRAMES), "--output", str(out2)]
+    if plot:
+        cmd += ["--plot-every", str(CLI_RUN2_PLOT_EVERY)]
+    else:
+        print("cli: run 2 without --plot-every: matplotlib is not installed", flush=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                              text=True, timeout=CLI_RUN2_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail("cli", "run 2 exit", f"{' '.join(cmd[1:4])} ran over {CLI_RUN2_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    tail = "\n".join(proc.stderr.strip().splitlines()[-15:])
+    if proc.returncode != 0:
+        fail("cli", "run 2 exit", f"python -m stereoslam_tpu_torch.run exited {proc.returncode}:\n"
+             f"{tail}")
+    rows = (out2 / "trajectory.txt").read_text().strip().splitlines() \
+        if (out2 / "trajectory.txt").exists() else []
+    if not rows or any(len(r.split()) != 9 for r in rows):
+        fail("cli", "run 2 trajectory", f"trajectory.txt has {len(rows)} rows, or rows that are "
+             f"not 9 fields:\n{tail}")
+    wanted = ["loopEdges.txt", "map.ply"] + (["live.png"] if plot else [])
+    missing = [f for f in wanted if not (out2 / f).exists()]
+    if missing:
+        fail("cli", "run 2 files", f"missing {missing}:\n{tail}")
+    run2_log = [line for line in proc.stderr.splitlines()
+                if "processed " in line or "decoding " in line or "3D map" in line]
+    print(f"cli: run 2 (python -m stereoslam_tpu_torch.run, defaults: loop ON with trained "
+          f"CALC, {CLI_RUN2_FRAMES} frames): exit 0 in {wall:.1f} s wall, {len(rows)} keyframe rows, "
+          f"files {wanted}; its log: {run2_log} [{card}]", flush=True)
+
+    check_profiler(main_slam, seq)
 
 
 def phase_calc(dev, img_np, card: str) -> None:
@@ -805,9 +1071,6 @@ def check_feed(seq, dev) -> None:
 
 def check_checkpoint(slam, card: str) -> None:
     """The final loop-ON state through a checkpoint into a fresh StereoSlam."""
-    import os
-    import tempfile
-
     from stereoslam_tpu_torch.core.system import StereoSlam
 
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
@@ -1002,7 +1265,11 @@ def main() -> None:
     print(f"data: {N_FRAMES} synthetic frames 376x1241 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     numbers = run_phase("kernels", phase_kernels, dev, seq, card)
-    launches = run_phase("main", phase_main, dev, seq, card)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    launches, main_slam = run_phase("main", phase_main, dev, seq, Path(work.name), card)
+    run_phase("cli", phase_cli, dev, seq, main_slam, Path(work.name), card)
+    del main_slam
+    work.cleanup()
     run_phase("calc", phase_calc, dev, seq.left[0], card)
     run_phase("loop", phase_loop, dev, card)
     worst_world = run_phase("world", phase_world, dev, card)

@@ -31,6 +31,7 @@ from stereoslam_tpu_torch.core.state import INITING, LOST, TRACKING_GOOD, init_a
 from stereoslam_tpu_torch.ops.camera import Intrinsics
 from stereoslam_tpu_torch.ops.image import build_lk_pyramid
 from stereoslam_tpu_torch.utils import checkpoint as ckpt
+from stereoslam_tpu_torch.utils.prof import Profiler
 from stereoslam_tpu_torch.utils import trajectory as traj_io
 
 log = logging.getLogger(__name__)
@@ -90,6 +91,9 @@ class StereoSlam:
         # frame_trajectory().
         self._pose_log: Dict[int, Tuple[np.ndarray, int]] = {}
         self.metrics: Dict[str, List[int]] = {"num_inliers": [], "num_tracked": []}
+        # One record per frame: status, keyframe and loop events, the
+        # "track" stage's host time (the JAX facade's records).
+        self.profiler = Profiler()
         # Wall time of each process_staged call, entry to return.  Outcomes
         # are read back synchronously (readback lag 0), so this is the
         # frame's whole latency, its device work included.
@@ -118,9 +122,12 @@ class StereoSlam:
         lies on the device."""
         if self._status == LOST:
             return False
+        rec = self.profiler.start_frame(self._frame_count, float(timestamp))
         t0 = time.perf_counter()
         ok = self._step(lr_u8, timestamp)
         self.frame_latency_ms.append((time.perf_counter() - t0) * 1e3)
+        rec.status = self._status
+        self.profiler.end_frame()
         return ok
 
     def _step(self, lr_u8: torch.Tensor, timestamp: float) -> bool:
@@ -154,10 +161,11 @@ class StereoSlam:
             return True
 
         ba_fn = self._ba if (self.enable_backend and self.inline_ba) else None
-        fs, m, pyr_left, counts = frontend_mod.frame_step(
-            left_f32, lambda: lr_u8[1].to(torch.float32), self._pyr_prev, self.fs, self.map,
-            self.intr_left, self.intr_right, self.baseline, ts, self.cfg, ba_fn=ba_fn,
-        )
+        with self.profiler.stage("track"):
+            fs, m, pyr_left, counts = frontend_mod.frame_step(
+                left_f32, lambda: lr_u8[1].to(torch.float32), self._pyr_prev, self.fs, self.map,
+                self.intr_left, self.intr_right, self.baseline, ts, self.cfg, ba_fn=ba_fn,
+            )
         self.fs, self.map, self._pyr_prev = fs, m, pyr_left
         self._frame_count += 1
         # One readback per frame: counts and the KF-relative pose.
@@ -192,6 +200,7 @@ class StereoSlam:
                 log.error("landmark table nearly exhausted even after compaction "
                           "(%d free): raise map.max_landmarks", n_freed)
         if kf_id >= 0:
+            self.profiler._current.keyframe_id = kf_id
             self._after_keyframe(left_f32, kf_id,
                                  run_ba=self.enable_backend and not self.inline_ba)
 
@@ -224,6 +233,8 @@ class StereoSlam:
         if not closed:
             return
         self._loop_edges.append((kf_id, int(loop_kf)))
+        if self.profiler._current is not None:
+            self.profiler._current.loop_closed_with = int(loop_kf)
         # The frontend pose is KF-relative, so the corrected KF pose carries
         # over; the landmark merge is applied to the live tracks, then links
         # the correction left inconsistent are dropped.

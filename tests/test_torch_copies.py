@@ -14,14 +14,20 @@ import torch
 torch.set_num_threads(2)
 
 from stereoslam_tpu import config as jax_config  # noqa: E402
+from stereoslam_tpu.utils import kitti as jax_kitti  # noqa: E402
 from stereoslam_tpu.utils import metrics as jax_metrics  # noqa: E402
+from stereoslam_tpu.utils import prof as jax_prof  # noqa: E402
 from stereoslam_tpu.utils import synthetic as jax_synthetic  # noqa: E402
 from stereoslam_tpu.utils import trajectory as jax_trajectory  # noqa: E402
+from stereoslam_tpu.utils import viewer as jax_viewer  # noqa: E402
 from stereoslam_tpu.utils import world as jax_world  # noqa: E402
 from stereoslam_tpu_torch import config as pt_config  # noqa: E402
+from stereoslam_tpu_torch.utils import kitti as pt_kitti  # noqa: E402
 from stereoslam_tpu_torch.utils import metrics as pt_metrics  # noqa: E402
+from stereoslam_tpu_torch.utils import prof as pt_prof  # noqa: E402
 from stereoslam_tpu_torch.utils import synthetic as pt_synthetic  # noqa: E402
 from stereoslam_tpu_torch.utils import trajectory as pt_trajectory  # noqa: E402
+from stereoslam_tpu_torch.utils import viewer as pt_viewer  # noqa: E402
 from stereoslam_tpu_torch.utils import world as pt_world  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -112,6 +118,89 @@ def test_trajectory_writer_matches(tmp_path, rng):
     np.testing.assert_allclose(Ta, Tb, atol=1e-6)
 
 
+def drive_profiler(mod, monkeypatch):
+    """The same calls on a Profiler of ``mod`` under a fake clock that steps
+    1.5 ms a read; returns what each public method gives."""
+    clock = iter(np.arange(200) * 1.5e-3)
+    monkeypatch.setattr(mod.time, "perf_counter", lambda: float(next(clock)))
+    p = mod.Profiler()
+    with p.stage("load"):  # outside a frame: counted, recorded nowhere
+        pass
+    for f in range(6):
+        rec = p.start_frame(f, 0.1 * f)
+        with p.stage("track"):
+            pass
+        if f % 2:
+            with p.stage("ba"):
+                with p.stage("track"):
+                    pass
+            rec.keyframe_id = f // 2
+        if f == 5:
+            rec.loop_closed_with = 0
+        rec.status = 1
+        p.end_frame()
+    p.end_frame()  # no current frame: nothing recorded
+    return [dataclasses.asdict(r) for r in p.frames], p.summary(), [r.to_json() for r in p.frames]
+
+
+def test_profiler_copy_behaves_the_same(monkeypatch, tmp_path):
+    a = drive_profiler(jax_prof, monkeypatch)
+    b = drive_profiler(pt_prof, monkeypatch)
+    assert a == b
+    assert len(a[0]) == 6 and a[1]["track"]["count"] == 9
+    assert [f.name for f in dataclasses.fields(jax_prof.FrameRecord)] == [
+        f.name for f in dataclasses.fields(pt_prof.FrameRecord)]
+    for mod in (jax_prof, pt_prof):
+        p = mod.Profiler()
+        p.start_frame(3, 0.25).status = 2
+        p.end_frame()
+        p.dump_jsonl(str(tmp_path / f"{mod.__name__}.jsonl"))
+    assert (tmp_path / "stereoslam_tpu.utils.prof.jsonl").read_text() == (
+        tmp_path / "stereoslam_tpu_torch.utils.prof.jsonl").read_text()
+
+
+def test_kitti_copy_reads_paths_and_poses_identically(tmp_path, rng):
+    (tmp_path / "times.txt").write_text("".join(f"{float(t)!r}\n" for t in np.cumsum(rng.random(7))) + "\n")
+    poses = rng.normal(size=(7, 12))
+    np.savetxt(tmp_path / "poses.txt", poses)
+    a = jax_kitti.load_image_paths(str(tmp_path))
+    b = pt_kitti.load_image_paths(str(tmp_path))
+    assert a[0] == b[0] and a[1] == b[1] and len(a[0]) == 7
+    np.testing.assert_array_equal(a[2], b[2])
+    ga = jax_kitti.load_gt_poses(str(tmp_path / "poses.txt"))
+    gb = pt_kitti.load_gt_poses(str(tmp_path / "poses.txt"))
+    assert ga.dtype == gb.dtype and ga.shape == gb.shape == (7, 4, 4)
+    np.testing.assert_array_equal(ga, gb)
+
+
+def map_scene(rng):
+    """tests/test_cli.py's map: 12 KFs on a forward path, 300 landmarks."""
+    n_kf, n_lm = 12, 300
+    kf_T = np.tile(np.eye(4, dtype=np.float32), (n_kf, 1, 1))
+    kf_T[:, 2, 3] = -1.5 * np.arange(n_kf)
+    lm = rng.uniform([-10, -2, 0], [10, 2, 20], (n_lm, 3)).astype(np.float32)
+    valid = np.ones(n_lm, bool)
+    valid[::7] = False
+    return kf_T, lm, valid, [(10, 2)]
+
+
+def test_viewer_copy_exports_the_same_ply_and_draws(tmp_path, rng):
+    kf_T, lm, valid, edges = map_scene(rng)
+    a = jax_viewer.export_ply(kf_T, lm, valid, edges, out_path=str(tmp_path / "a.ply"))
+    b = pt_viewer.export_ply(kf_T, lm, valid, edges, out_path=str(tmp_path / "b.ply"))
+    assert open(a).read() == open(b).read()
+    assert f"element vertex {int(valid.sum()) + 12}" in open(b).read()
+    png = pt_viewer.plot_map_3d(kf_T, lm, valid, edges, out_path=str(tmp_path / "map3d.png"))
+    assert os.path.getsize(png) > 10_000
+
+
+def test_native_loader_source_is_a_byte_copy():
+    assert (REPO / "stereoslam_tpu_torch/native/dataloader.cpp").read_bytes() == (
+        REPO / "stereoslam_tpu/native/dataloader.cpp").read_bytes()
+    # The port builds its libraries at first use; none lies beside the source.
+    assert [p for p in (REPO / "stereoslam_tpu_torch").rglob("*.so") if "_build" not in p.parts] == []
+
+
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['stereoslam_tpu'] = None\n"
@@ -119,6 +208,9 @@ def test_port_imports_without_jax():
         "import stereoslam_tpu_torch.core.system, stereoslam_tpu_torch.ops.lk_level, chip_smoke\n"
         "import stereoslam_tpu_torch.eval, stereoslam_tpu_torch.utils.world\n"
         "import stereoslam_tpu_torch.utils.feed, stereoslam_tpu_torch.utils.checkpoint\n"
+        "import stereoslam_tpu_torch.run, stereoslam_tpu_torch.utils.kitti\n"
+        "import stereoslam_tpu_torch.utils.prof, stereoslam_tpu_torch.utils.viewer\n"
+        "import stereoslam_tpu_torch.native.dataloader\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )

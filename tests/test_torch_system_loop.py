@@ -61,3 +61,21 @@ def test_loop_edges_export(tmp_path, loop_run):
     assert all(len(line.split()) == 9 for line in lines)
     ids = [int(line.split()[0]) for line in lines]
     assert ids == [k for edge in slam.loop_edges for k in edge]
+
+
+def test_profiler_records_keyframes_and_loops(loop_run):
+    """The facade's per-frame records, as the JAX facade keeps them: one per
+    frame, the keyframe ids of the keyframes after the init one, and each
+    loop closed during a frame on the keyframe frame that resolved it."""
+    seq, _, slam, _ = loop_run
+    recs = slam.profiler.frames
+    assert [r.frame for r in recs] == list(range(len(seq.left)))
+    n_kf = int(slam.map.n_kf)
+    kf = [r for r in recs if r.keyframe_id >= 0]
+    assert [r.keyframe_id for r in kf] == list(range(1, n_kf))
+    assert [r.frame for r in kf] == slam.map.kf_frame_id[1:n_kf].tolist()
+    closed = [r for r in recs if r.loop_closed_with >= 0]
+    loops = [loop for _, loop in slam.loop_edges]
+    assert len(closed) >= len(loops) - 1 >= 0
+    assert [r.loop_closed_with for r in closed] == loops[:len(closed)]
+    assert all(r.keyframe_id >= 0 for r in closed)
