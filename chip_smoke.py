@@ -14,8 +14,10 @@ failure:
              iterations from a zero flow and 10 from a seeded one) and
              ``lk_final_error`` against their plain versions; ``lk_pyramid``
              against the same call composed of per-level launches (bit for
-             bit) and against ``lk_pyramid_plain`` (tolerances), for the
-             temporal forward+FB, stereo, deep-rescue and border calls; then
+             bit), against itself gated on (bit for bit) and gated off (no
+             track kept), and against ``lk_pyramid_plain`` (tolerances), for
+             the temporal forward+FB, stereo, deep-rescue and border calls;
+             then
              device times per launch (a CUDA graph of back-to-back launches),
              each beside its roofline bound, and the time by iteration
              budget.
@@ -24,8 +26,18 @@ failure:
              Phase A; checks no LOST, the keyframe/landmark counts and the
              trajectory error against ground truth (and that they repeat the
              port's known run), that every tracked frame went through
-             ``lk_pyramid`` and that no per-level entry was launched.
-5. cli     — the user's entry point, ``stereoslam_tpu_torch.run``: writes phase
+             ``lk_pyramid`` and that no per-level entry was launched, and
+             that every tracked frame replayed the frame's CUDA graph.
+5. pipeline — phase main's frames staged on the card in advance: every
+             replay of the tracked frame's graph against the eager
+             ``track_frame`` on the same inputs (bit for bit); host syncs per
+             tracked frame through ``process_staged`` by kind (a
+             keyframe-free frame must make exactly one, its outcome read);
+             ``readback_lag=10`` and ``process_chunk`` (C=8) against phase
+             main's keyframes and trajectory; the keyframe-free frame eager
+             against replayed, interleaved: wall time, device time, busy
+             share.
+6. cli     — the user's entry point, ``stereoslam_tpu_torch.run``: writes phase
              main's 100 frames as a KITTI directory (8-bit grey PNGs by a
              stdlib writer, ``times.txt``, a poses file, the config as
              OpenCV YAML, which must load back equal to phase main's);
@@ -38,11 +50,11 @@ failure:
              stereoslam_tpu_torch.run`` with the default flags (loop closing
              with trained CALC) on 40 frames as a subprocess and checks its
              files; checks phase main's profiler records.
-6. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
+7. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
              and the HOG descriptor on one 376x1241 keyframe image, on the
              card against the same module on the CPU (float32, TF32 off),
              with each one's device time per call.
-7. loop    — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
+8. loop    — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
              descriptor over a closed blob-world circuit at KITTI geometry,
              with the full-size state (400 features x 8 ORB levels, 1536
              keyframe rows, 131,072 landmark rows); checks no LOST, a true
@@ -50,7 +62,7 @@ failure:
              through ``lk_pyramid``, and that the run repeats the port's
              known one; prints FPS, per-stage keyframe times and PGO
              iterations.
-8. world   — the canonical 548-frame world circuit of ``run_world_eval``
+9. world   — the canonical 548-frame world circuit of ``run_world_eval``
              (240x376, trained CALC at the shipped 0.94/0.92 thresholds):
              renders it on the card and holds four frames of each camera to
              the CPU render; checks ``DeviceFeed`` over 50 host frames; runs
@@ -63,9 +75,11 @@ failure:
              (frames 0 and 1 of the circuit: temporal, stereo, deep-rescue
              and border calls); round-trips the final state through a
              checkpoint into a fresh ``StereoSlam``; prints FPS, p50, ATE,
-             edges and per-stage keyframe times.
-9. profile — with ``--profile N``: device busy share, the top kernels, the
-             LK kernels' self device time per launch, host syncs per frame.
+             edges, per-stage keyframe times, and the refused loop
+             verifications by the guard that refused them.
+10. profile — with ``--profile N``: device busy share, the top kernels, the
+             LK kernels' self device time per launch, host syncs per frame
+             for keyframe, replenish and keyframe-free frames.
 
 Each phase prints ``phase <name>: start`` and ``phase <name>: done in <s> s``;
 a failure prints ``FAIL: phase <name>, check <check>: ...`` and exits 1.  The
@@ -385,7 +399,16 @@ def check_pyramid_case(L, name, pa, pb, pts, init, kw, phase: str = "kernels") -
     got = L.lk_pyramid(pa, pb, pts, init, **kw)
     ref = L.lk_pyramid_levels(pa, pb, pts, init, **kw)
     plain = L.lk_pyramid_plain(pa, pb, pts, init, **kw)
+    on = L.lk_pyramid(pa, pb, pts, init, gate=torch.ones((), dtype=torch.bool, device=pts.device),
+                      **kw)
+    off = L.lk_pyramid(pa, pb, pts, init, gate=torch.zeros((), dtype=torch.bool,
+                                                            device=pts.device), **kw)
     torch.cuda.synchronize()
+    gate_ok = (all(torch.equal(x, y) for x, y in zip(on, got)) and not bool(off.status.any())
+               and torch.equal(off.points, init) and not bool(off.error.any()))
+    if not gate_ok:
+        fail(phase, "lk_pyramid gate", f"lk_pyramid ({name}) gated on differs from the ungated "
+             f"call, or gated off keeps a track")
     same = torch.equal(got.points, ref.points) and torch.equal(got.error, ref.error)
     differ = got.status != ref.status
     n_flip = int(differ.sum())
@@ -399,7 +422,8 @@ def check_pyramid_case(L, name, pa, pb, pts, init, kw, phase: str = "kernels") -
           f"{tuple(pa[-1].shape)}, N={pts.shape[0]}, "
           f"{int(got.status.sum())} kept; vs per-level launches: points and error "
           f"{'bit-identical' if same else 'DIFFER'}, {n_flip} status flips "
-          f"({int(differ.sum())} not round-trip ties); vs plain: status agree {agree:.4f}, "
+          f"({int(differ.sum())} not round-trip ties); gated on: bit-identical to ungated, gated "
+          f"off: no track kept; vs plain: status agree {agree:.4f}, "
           f"|dpoint| median {med:.2e} p99 {p99:.2e} px", flush=True)
     if not same or bool(differ.any()):
         fail(phase, "lk_pyramid vs per-level launches",
@@ -548,8 +572,11 @@ def phase_kernels(dev, seq, card: str):
               for n_it in (0, 1, 5, 20)]
     t_y0 = device_ms(lambda: L.lk_pyramid(p3a, p3b, pts, seeded, **dict(lk_kw, iters=0,
                                                                          fb_iters=0)))
+    gate_off = torch.zeros((), dtype=torch.bool, device=dev)
+    t_off = device_ms(lambda: L.lk_pyramid(p3a, p3b, pts, seeded, gate=gate_off, **lk_kw))
     print(f"kernels: device us per launch by iteration budget: lk_level level 0 "
-          f"{', '.join(budget)}; lk_pyramid forward+FB at 0 iterations {t_y0 * 1e3:.3f}",
+          f"{', '.join(budget)}; lk_pyramid forward+FB at 0 iterations {t_y0 * 1e3:.3f}; "
+          f"lk_pyramid gated off (a rescue call that does not fire) {t_off * 1e3:.3f} [{card}]",
           flush=True)
 
     def entry(err, ms, plain, bnd):
@@ -597,6 +624,7 @@ def phase_main(dev, seq, work: Path, card: str):
     gt = np.linalg.inv(seq.T_cw[ids].astype(np.float64))
     ate = ate_rmse(np.linalg.inv(T.astype(np.float64)), gt, align=False)
     tracked = n - 1  # every frame after the stereo-init frame
+    gated, fired = rescue_launches(cfg, tracked), slam.rescues["retry"] + slam.rescues["deep"]
     fps = (n - WARMUP) / (t_end - t_warm)
     p50 = float(np.median(times[WARMUP:])) * 1e3
     print(f"main: {n} frames 376x1241: {fps:.2f} FPS after {WARMUP} warmup frames, p50 frame "
@@ -606,7 +634,12 @@ def phase_main(dev, seq, work: Path, card: str):
           f"{int(np.median(slam.metrics['num_inliers']))}, lk_pyramid launches "
           f"{launches['lk_pyramid']} ({launches['lk_pyramid'] / tracked:.2f}/tracked frame), "
           f"per-level launches: lk_level {launches['lk_level']}, lk_final_error "
-          f"{launches['lk_final_error']}", flush=True)
+          f"{launches['lk_final_error']}; of them {gated} gated rescue launches, {fired} on "
+          f"(retry {slam.rescues['retry']}, deep {slam.rescues['deep']}), {gated - fired} gated "
+          f"off; {slam.track_graph.replays} graph replays", flush=True)
+    if slam.track_graph.replays != tracked:
+        fail("main", "graph", f"{slam.track_graph.replays} graph replays for {tracked} tracked "
+             f"frames")
     if n_kf < 2 or n_lm <= 0:
         fail("main", "map", f"map did not grow: n_kf {n_kf}, n_lm {n_lm}")
     if launches["lk_pyramid"] < tracked:
@@ -624,6 +657,236 @@ def phase_main(dev, seq, work: Path, card: str):
     # What phase cli holds the CLI's outputs to.
     slam.save_trajectory(str(work / "main_trajectory.txt"))
     return launches, slam
+
+
+def rescue_launches(cfg, tracked: int) -> int:
+    """The gated LK rescue launches of ``tracked`` frames: the rescue pass
+    and, where the image allows a deeper pyramid, the deep one, each
+    launched on every tracked frame and gated on the device."""
+    from stereoslam_tpu_torch.core.frontend import _max_pyramid_depth
+
+    t = cfg.tracking
+    deep_n = min(t.lk_levels + t.lk_rescue_extra_levels,
+                 _max_pyramid_depth(cfg.image_height, cfg.image_width, t.lk_window))
+    per_frame = (t.lk_retry_fail_frac > 0) * (1 + (t.lk_rescue_extra_levels > 0
+                                                   and deep_n > t.lk_levels))
+    return per_frame * tracked
+
+
+# ---------------------------------------------------------------------------
+# Phase pipeline: the tracked frame's CUDA graph, its host syncs, the lag
+# ---------------------------------------------------------------------------
+
+PIPE_LAG, PIPE_CHUNK = 10, 8
+PIPE_MAX_ATE_M = 0.02
+PIPE_TIMING_REPS = 10
+
+
+class SyncCount:
+    """Counts the host syncs torch's sync-debug mode reports ("called a
+    synchronizing CUDA operation"; its one-time notice that the mode is a
+    prototype is not a sync)."""
+
+    def __enter__(self):
+        import warnings
+
+        self.n = 0
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def _show(self, message, *args, **kw):
+        self.n += "called a synchronizing CUDA operation" in str(message)
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+
+def frame_kind(before, after) -> str:
+    """'keyframe', 'replenish' or 'plain' from (n_kf, n_lm) around a frame."""
+    if after[0] != before[0]:
+        return "keyframe"
+    return "replenish" if after[1] != before[1] else "plain"
+
+
+def time_frames(fn, reps: int):
+    """(wall, event span, device kernel time), ms per call: the host clock
+    around ``reps`` calls that end in a synchronize, CUDA events around the
+    same calls, and the CUDA kernels' time (torch.profiler) in a second
+    window of as many calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    span = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    return wall, span, kern
+
+
+def check_svd(dev) -> None:
+    """ops/svd.py's cuSOLVER call (no host read) against torch.linalg.svd,
+    bit for bit, on 3x3 matrices one at a time (the tracked frame's shape)
+    and in a batch: rotations off by 1e-7 to 1 of noise."""
+    from stereoslam_tpu_torch.ops.svd import svd
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mats = []
+    for scale in (1e-7, 1e-6, 1e-3, 1.0):
+        q, _ = torch.linalg.qr(torch.randn(50, 3, 3, device=dev, generator=gen))
+        mats.append(q * torch.sign(torch.linalg.det(q))[:, None, None]
+                    + scale * torch.randn(50, 3, 3, device=dev, generator=gen))
+    mats = torch.cat(mats)
+    same = all(all(torch.equal(x, y) for x, y in zip(svd(m), torch.linalg.svd(m))) for m in mats)
+    same_batch = all(torch.equal(x, y) for x, y in zip(svd(mats), torch.linalg.svd(mats)))
+    print(f"pipeline: ops/svd.py svd against torch.linalg.svd on {len(mats)} 3x3 float32 "
+          f"matrices: {'bit-identical' if same else 'DIFFER'} one at a time, "
+          f"{'bit-identical' if same_batch else 'DIFFER'} as a batch", flush=True)
+    if not (same and same_batch):
+        fail("pipeline", "svd", "ops/svd.py's cuSOLVER call differs from torch.linalg.svd")
+
+
+def phase_pipeline(dev, seq, main_slam, card: str) -> None:
+    """Phase main's frames through the pipelined facade, staged on the card
+    in advance: every replay against the eager track_frame (bit for bit),
+    host syncs per frame by kind, lag 10 and process_chunk against phase
+    main's run, and the keyframe-free frame eager against replayed."""
+    from stereoslam_tpu_torch.core import frontend as F
+    from stereoslam_tpu_torch.core.graphs import _clone, _flat
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = kitti_config(seq)
+    n = len(seq.left)
+    check_svd(dev)
+    staged = [torch.from_numpy(np.stack([seq.left[t], seq.right[t]]).astype(np.uint8)).to(dev)
+              for t in range(n)]
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+
+    # Lag 0, each replay held against the eager frame, syncs counted.
+    slam = StereoSlam(cfg, device=dev, enable_loop=False)
+    g = slam.track_graph
+    syncs = {"plain": [], "replenish": [], "keyframe": []}
+    differ = []
+    snapshot = None
+    for t in range(n):
+        before = (int(slam.map.n_kf), int(slam.map.n_lm))
+        reads = slam.outcome_reads
+        torch.cuda.synchronize()
+        with SyncCount() as sc:
+            ok = slam.process_staged(staged[t], seq.timestamps[t])
+        if not ok:
+            fail("pipeline", "LOST", f"tracking LOST at frame {t}")
+        kind = frame_kind(before, (int(slam.map.n_kf), int(slam.map.n_lm)))
+        if t >= 2:  # frame 0 initializes, frame 1 captures the graph
+            syncs[kind].append((sc.n, slam.outcome_reads - reads))
+        if t >= 1:
+            eager = g._frame(*g._inputs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(_flat(eager), _flat(g._outputs))):
+                differ.append(t)
+        if kind == "plain" and t >= WARMUP and snapshot is None:
+            snapshot = (t, _clone(g._inputs))
+    print(f"pipeline: graph replay against the eager track_frame on the same inputs, frames "
+          f"1..{n - 1}: {'bit-identical' if not differ else f'DIFFER at frames {differ}'} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if differ:
+        fail("pipeline", "replay vs eager", f"graph replay differs from the eager track_frame at "
+             f"frames {differ}")
+    for kind, v in syncs.items():
+        if v:
+            arr = np.asarray(v)
+            print(f"pipeline: host syncs per {kind} tracked frame through process_staged (frames "
+                  f"staged in advance): {arr.sum(1).mean():.2f} (min {arr.sum(1).min()}, max "
+                  f"{arr.sum(1).max()}) over {len(v)} frames: outcome reads {arr[:, 1].mean():.2f}, "
+                  f"other syncs {arr[:, 0].mean():.2f}", flush=True)
+    plain = np.asarray(syncs["plain"])
+    if len(plain) == 0 or not (plain[:, 0] == 0).all() or not (plain[:, 1] == 1).all():
+        fail("pipeline", "syncs", f"a keyframe-free tracked frame made other than one host read: "
+             f"(other syncs, outcome reads) {syncs['plain']}")
+    same_run = all(np.array_equal(a, b) for a, b in
+                   zip(slam.keyframe_trajectory(), main_slam.keyframe_trajectory()))
+    if not same_run:
+        fail("pipeline", "repeat", "the run with staged frames differs from phase main's")
+
+    # Lag 10 and process_chunk against phase main's run.
+    main_ids, main_T = main_slam.frame_trajectory()
+    main_kf = main_slam.map.kf_frame_id[:int(main_slam.map.n_kf)].cpu().numpy()
+    lag = StereoSlam(cfg, device=dev, enable_loop=False, readback_lag=PIPE_LAG)
+    t0 = time.perf_counter()
+    for t in range(n):
+        if not lag.process_staged(staged[t], seq.timestamps[t]):
+            fail("pipeline", "LOST", f"lag {PIPE_LAG}: LOST retired by frame {t}")
+    torch.cuda.synchronize()
+    t_lag = time.perf_counter() - t0
+    chunk = StereoSlam(cfg, device=dev, enable_loop=False)
+    for t in range(2):
+        chunk.process_staged(staged[t], seq.timestamps[t])
+    t0 = time.perf_counter()
+    for base in range(2, n, PIPE_CHUNK):
+        hi = min(base + PIPE_CHUNK, n)
+        if not chunk.process_chunk(torch.stack(staged[base:hi]), seq.timestamps[base:hi]):
+            fail("pipeline", "LOST", f"process_chunk: LOST retired by frame {hi - 1}")
+    torch.cuda.synchronize()
+    t_chunk = time.perf_counter() - t0
+    for name, other, wall, frames in (("lag 10", lag, t_lag, n), (f"process_chunk C={PIPE_CHUNK}",
+                                                                  chunk, t_chunk, n - 2)):
+        ids, T = other.frame_trajectory()
+        kf = other.map.kf_frame_id[:int(other.map.n_kf)].cpu().numpy()
+        ate = ate_rmse(np.linalg.inv(T.astype(np.float64)), np.linalg.inv(main_T.astype(np.float64)),
+                       align=False) if np.array_equal(ids, main_ids) else float("inf")
+        bit = np.array_equal(T, main_T)
+        print(f"pipeline: {name}: keyframe frames {'equal to' if np.array_equal(kf, main_kf) else 'DIFFER from'} "
+              f"phase main's ({len(kf)}), frame-trajectory ATE against phase main's run {ate:.2e} m "
+              f"({'bit-identical' if bit else 'not bit-identical'}); {frames / wall:.2f} FPS over "
+              f"{frames} frames (staged in advance, card synchronized at the end) [{card}]",
+              flush=True)
+        if not np.array_equal(kf, main_kf) or not ate <= PIPE_MAX_ATE_M:
+            fail("pipeline", name, f"keyframe frames {kf.tolist()} against {main_kf.tolist()}, "
+                 f"ATE {ate} m against phase main's run (bound {PIPE_MAX_ATE_M} m)")
+
+    # The keyframe-free frame, eager against replayed, interleaved, on the
+    # inputs of the first keyframe-free frame after the warm-up.
+    t_snap, (lr, pyr_prev, fs, tmap) = snapshot
+    host = torch.empty(F.OUTCOME_SIZE, dtype=torch.float32, pin_memory=True)
+    landed = torch.cuda.Event()
+
+    def eager():
+        F.track_frame(lr[0].to(torch.float32), pyr_prev, fs, tmap, slam.intr_left, cfg)[2].cpu()
+
+    def replayed():
+        g.run(lr, pyr_prev, fs, tmap)
+        host.copy_(g._outputs[3], non_blocking=True)
+        landed.record()
+        landed.synchronize()
+
+    t0 = time.perf_counter()
+    runs = [(name, time_frames(fn, PIPE_TIMING_REPS)) for name, fn in
+            (("eager", eager), ("replayed", replayed), ("replayed", replayed), ("eager", eager))]
+    for name, (wall, span, kern) in runs:
+        print(f"pipeline: keyframe-free frame {t_snap} {name}: {wall:.3f} ms wall, {span:.3f} ms "
+              f"between CUDA events, {kern:.3f} ms device kernel time (profiler), device busy "
+              f"{kern / wall:.1%} (track_frame and its outcome read; replayed adds the copy-in; "
+              f"{PIPE_TIMING_REPS} calls each) [{card}]", flush=True)
+    print(f"pipeline: the timing took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -817,6 +1080,9 @@ def phase_cli(dev, seq, main_slam, work: Path, card: str) -> None:
     lat = np.asarray(slam.frame_latency_ms[WARMUP:])
     main_lat = np.asarray(main_slam.frame_latency_ms[WARMUP:])
     track = slam.profiler.summary()["track"]
+    if slam.rescues != main_slam.rescues:
+        fail("cli", "run 1 rescues", f"LK rescues {slam.rescues} against phase main's "
+             f"{main_slam.rescues}")
     print(f"cli: run 1 (in-process, --no-loop --gt, {n} frames): trajectory.txt byte-equal to "
           f"phase main's, keyframe ATE {logged.group(1)} m (align=True) as phase main's, "
           f"lk_pyramid launches {launches['lk_pyramid']} ({launches['lk_pyramid'] / tracked:.2f}"
@@ -938,9 +1204,11 @@ def phase_loop(dev, card: str) -> None:
 
     print(f"loop: {n} frames in {wall:.1f} s, {n / wall:.2f} FPS (stage timing syncs the card "
           f"after each loop stage) [{card}]", flush=True)
+    gated, fired = rescue_launches(cfg, n - 1), slam.rescues["retry"] + slam.rescues["deep"]
     print(f"loop: n_kf {n_kf}, loop edges (cur, loop, id gap, ground-truth m) {gaps}, frame ATE "
           f"{ate:.4f} m (align=False), lk_pyramid launches {launches} "
-          f"({launches / (n - 1):.2f}/tracked frame), per-level launches "
+          f"({launches / (n - 1):.2f}/tracked frame; {gated} gated rescue launches, {fired} on, "
+          f"{gated - fired} off), per-level launches "
           f"{K.lk_level.launches + K.lk_final_error.launches}", flush=True)
     print(f"loop: median host wall time per keyframe stage: process_keyframe "
           f"{med_ms('process_keyframe')}, detect {med_ms('detect')}, verify {med_ms('verify')}, "
@@ -1104,6 +1372,49 @@ def check_checkpoint(slam, card: str) -> None:
         fail("world", "checkpoint round trip", "the loaded state differs from the saved one")
 
 
+REFUSAL = re.compile(r"loop candidate KF (\d+) -> (\d+) not verified: (\d+) pairs, (\d+) pose "
+                     r"inliers, pose_err ([\d.]+) m \(odo ([\d.]+) m\)")
+
+
+def summarize_refusals(lines, loop_cfg, card: str) -> None:
+    """The loop-ON run's refused verifications (core/loopclosing.py logs
+    each: pairs, pose inliers, pose error, odometry since the loop KF), held
+    to the verification's guards: pairs >= min_matches, pose inliers >=
+    min_inliers (and a PnP solution, which the line does not show), inliers
+    >= min_inlier_ratio x pairs, pose error <= min(max_correction_frac x
+    odometry, max_correction_cap) + max_correction_abs.  Prints how many each
+    guard refused (a candidate can fail several) and how many it alone
+    refused; the logged numbers are rounded (2 decimals for the error, 1 for
+    the odometry)."""
+    c = loop_cfg
+    rows = [tuple(float(v) for v in m.groups()) for m in map(REFUSAL.match, lines) if m]
+    guards = {
+        f"pairs < min_matches {c.min_matches}": lambda p, i, e, o: p < c.min_matches,
+        f"pose inliers < min_inliers {c.min_inliers} (or no PnP pose)":
+            lambda p, i, e, o: i < c.min_inliers,
+        f"pose inliers < {c.min_inlier_ratio} x pairs":
+            lambda p, i, e, o: i < c.min_inlier_ratio * max(p, 1),
+        f"pose_err > min({c.max_correction_frac} x odo, {c.max_correction_cap} m) + "
+        f"{c.max_correction_abs} m":
+            lambda p, i, e, o: e > min(c.max_correction_frac * o, c.max_correction_cap)
+            + c.max_correction_abs,
+    }
+    hits = {name: [g(*r[2:]) for r in rows] for name, g in guards.items()}
+    alone = {name: sum(h and sum(hits[k][j] for k in hits) == 1 for j, h in enumerate(v))
+             for name, v in hits.items()}
+    unexplained = sum(not any(hits[k][j] for k in hits) for j in range(len(rows)))
+    print(f"world: {len(rows)} refused verifications in the loop-ON run; by guard (refused, "
+          f"refused by it alone): " + "; ".join(f"{k}: {sum(v)}, {alone[k]}" for k, v in
+                                                  hits.items())
+          + f"; by no guard the line shows (PnP failed): {unexplained} [{card}]", flush=True)
+    for r in rows:
+        kf, lp, pairs, inl, err, odo = r
+        allowed = min(c.max_correction_frac * odo, c.max_correction_cap) + c.max_correction_abs
+        print(f"world: refused KF {int(kf)} -> {int(lp)}: {int(pairs)} pairs, {int(inl)} pose "
+              f"inliers, pose_err {err:.2f} m against {allowed:.2f} m allowed (odo {odo:.1f} m)",
+              flush=True)
+
+
 def phase_world(dev, card: str):
     """The canonical world circuit: render on the card, run_world_eval with the
     trained CALC descriptor at the shipped thresholds, checkpoint round trip."""
@@ -1138,7 +1449,15 @@ def phase_world(dev, card: str):
     L.lk_pyramid.launches = 0
     K.lk_level.launches = 0
     K.lk_final_error.launches = 0
-    rec = E.run_world_eval(n_frames=WORLD_FRAMES, seq=seq, device=dev, on_slam=keep)
+    loop_log = logging.getLogger("stereoslam_tpu_torch.core.loopclosing")
+    log_lines = LogLines()
+    loop_log.addHandler(log_lines)
+    loop_log.setLevel(logging.INFO)
+    try:
+        rec = E.run_world_eval(n_frames=WORLD_FRAMES, seq=seq, device=dev, on_slam=keep)
+    finally:
+        loop_log.removeHandler(log_lines)
+        loop_log.setLevel(logging.NOTSET)
     launches = L.lk_pyramid.launches
     per_level = K.lk_level.launches + K.lk_final_error.launches
     slam, slam_vo = slams
@@ -1151,6 +1470,10 @@ def phase_world(dev, card: str):
 
     edges = [(c, lp, c - lp, d) for (c, lp), d in zip(rec["loop_edges"], rec["edge_gt_dist_m"])]
     print(f"world: record {json.dumps(rec)}", flush=True)
+    gated = rescue_launches(slam.cfg, WORLD_FRAMES - 1) * 2
+    fired = sum(x.rescues["retry"] + x.rescues["deep"] for x in slams)
+    print(f"world: lk_pyramid rescue launches over both runs: {gated} gated, {fired} on, "
+          f"{gated - fired} off", flush=True)
     print(f"world: {rec['frames']} frames, {rec['fps']} FPS and p50 frame "
           f"{rec['latency_ms_p50']} ms after {E.EVAL_WARMUP} warm-up frames (stage timing syncs the card after each loop "
           f"stage); ATE loop ON {rec['ate_m']} m, loop OFF {rec['ate_vo_m']} m; loop edges (cur, "
@@ -1162,6 +1485,7 @@ def phase_world(dev, card: str):
           f"correct {med_ms('correct')}; PGO GN iterations {times.get('pgo_gn', [])}, CG "
           f"iterations {times.get('pgo_cg', [])} [{card}]", flush=True)
 
+    summarize_refusals(log_lines.lines, slam.cfg.loop, card)
     if closer.model.params is None:
         fail("world", "descriptor", "the trained CALC weights were not found: the run used HOG")
     if rec["frames"] != WORLD_FRAMES or rec["lost_at"] is not None:
@@ -1222,22 +1546,23 @@ def phase_profile(dev, seq, n_frames: int, card: str) -> None:
             print(f"profile: {e.key}: {e.count} launches, self device time "
                   f"{e.self_device_time_total / max(e.count, 1):.2f} us/launch", flush=True)
 
-    # Host syncs: torch warns once per synchronizing call in sync-debug mode.
-    import warnings
-
+    # Host syncs per frame, by the frame's kind: the sync-debug mode's
+    # reports plus the facade's outcome reads (an event wait, which the mode
+    # does not see).  The frames are staged before the count.
     t_end = min(WARMUP + 2 * n_frames, len(seq.left))
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for t in range(WARMUP + n_frames, t_end):
-                slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    n_sync_frames = max(t_end - WARMUP - n_frames, 1)
-    print(f"profile: {syncs} host syncs over {n_sync_frames} frames "
-          f"({syncs / n_sync_frames:.1f}/frame)", flush=True)
+    by_kind = {}
+    for t in range(WARMUP + n_frames, t_end):
+        lr = torch.from_numpy(np.stack([seq.left[t], seq.right[t]]).astype(np.uint8)).to(dev)
+        before = (int(slam.map.n_kf), int(slam.map.n_lm))
+        reads = slam.outcome_reads
+        torch.cuda.synchronize()
+        with SyncCount() as sc:
+            slam.process_staged(lr, seq.timestamps[t])
+        kind = frame_kind(before, (int(slam.map.n_kf), int(slam.map.n_lm)))
+        by_kind.setdefault(kind, []).append(sc.n + slam.outcome_reads - reads)
+    print("profile: host syncs per frame: " + "; ".join(
+        f"{kind} frames {np.mean(v):.1f} over {len(v)}" for kind, v in sorted(by_kind.items())),
+        flush=True)
 
 
 def main() -> None:
@@ -1267,6 +1592,7 @@ def main() -> None:
     numbers = run_phase("kernels", phase_kernels, dev, seq, card)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     launches, main_slam = run_phase("main", phase_main, dev, seq, Path(work.name), card)
+    run_phase("pipeline", phase_pipeline, dev, seq, main_slam, card)
     run_phase("cli", phase_cli, dev, seq, main_slam, Path(work.name), card)
     del main_slam
     work.cleanup()

@@ -1,0 +1,155 @@
+"""One CUDA graph of the tracked frame per ``StereoSlam``: the port's
+counterpart of the JAX package's jitted frame program.
+
+:func:`~stereoslam_tpu_torch.core.frontend.track_frame` (the pyramid, LK
+with its gated rescue passes, the pose LM, the status and the branch flags)
+reads nothing back and takes its shapes from the config, so
+:class:`TrackGraph` captures it once, at the first tracked frame, and
+replays it on every tracked frame after: one graph launch in place of the
+several thousand kernel launches of the eager frame.
+
+**Capture.**  A warm-up call on a side stream comes first, as
+``torch.cuda.graphs`` requires: it loads the LK library's kernel and
+PyTorch's, and creates the cuBLAS and cuSOLVER handles.  It is the eager
+frame on the same inputs and its results are discarded, so it does not
+advance the state.  The capture then runs in ``thread_local`` mode, so a
+feed thread that stages the next frames meanwhile does not break it.  A
+failed capture raises; a CUDA tensor never falls back to the eager frame.
+
+**Inputs: copied in before every replay.**  The graph owns a static buffer
+for every input: the stereo pair ``lr_u8``, the previous frame's pyramid,
+the frontend state (tracks, ``T_rk``, ``T_vel``, ``ref_kf``, ``status``,
+``frame_id``) and the map fields the frame reads (``TrackMap``: ``lm_pos``,
+``lm_valid``, ``lm_outlier``, ``kf_T_cw``, ``kf_frame_id``,
+``last_ba_frame``, ``n_lm``).  Every one is copied in before every replay;
+nothing tracks which fields a keyframe, BA, replenishment, loop correction,
+compaction or ``load_checkpoint`` replaced, so a stale map cannot reach
+the graph.  At KITTI geometry (1241x376, 400 features) with the full-size
+state (131,072 landmark rows, 1536 keyframe rows) that is about 5.3 MB a
+frame: the landmark fields 1.8 MB, the previous pyramid 2.45 MB, ``lr_u8``
+0.93 MB, the rest under 0.1 MB.  Each byte is read once and written once,
+so at 3.35 TB/s the copies take about 3 us of the card's time.  The
+timestamp is not an input: only the keyframe branch, outside the graph,
+reads it.
+
+**Outputs** (the frame's float32 left image, its frontend state, its
+pyramid, its packed outcome) live in the graph's memory and are overwritten
+by the next replay.  A caller that keeps one across frames keeps a copy.
+
+**Launch counts.**  A replay runs no Python, so no wrapper counts its
+launch.  The capture records each kernel wrapper's count before and after
+(the capture itself launches nothing, so the counts are set back), and
+every replay adds that difference: ``lk_pyramid.launches`` stays the
+number of launches the card ran.
+
+**On the CPU** the same runner copies the inputs into the same static
+buffers, calls ``track_frame`` on them and copies the results into static
+outputs, without a graph, so the CPU tests run the copy-in and copy-out
+plumbing and the aliasing rules above.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from stereoslam_tpu_torch.config import SlamConfig
+from stereoslam_tpu_torch.core import frontend as frontend_mod
+from stereoslam_tpu_torch.core.state import FrontendState
+from stereoslam_tpu_torch.ops.camera import Intrinsics
+
+
+def _flat(tree) -> List[torch.Tensor]:
+    """The tensors of a nested tuple (NamedTuples included), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for item in tree for t in _flat(item)]
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    items = [_clone(item) for item in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+def _copy_into(dst, src) -> None:
+    d, s = _flat(dst), _flat(src)
+    if len(d) != len(s):
+        raise ValueError(f"{len(s)} tensors for {len(d)} static buffers")
+    for a, b in zip(d, s):
+        if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+            raise ValueError(f"input {tuple(b.shape)} {b.dtype} on {b.device} does not fit its "
+                             f"static buffer {tuple(a.shape)} {a.dtype} on {a.device}")
+        a.copy_(b)
+
+
+def _kernel_counters():
+    """The kernel wrappers whose ``launches`` the tracked frame can move."""
+    from stereoslam_tpu_torch.ops import lk, lk_level
+
+    return (lk.lk_pyramid, lk_level.lk_level, lk_level.lk_final_error)
+
+
+class TrackGraph:
+    """Runs ``track_frame`` as one replayed CUDA graph (on the CPU: on the
+    same static buffers, without a graph)."""
+
+    def __init__(self, cfg: SlamConfig, intr_left: Intrinsics, device):
+        self.cfg = cfg
+        self.intr = intr_left
+        self.device = torch.device(device)
+        self.graph = None
+        self._inputs = None
+        self._outputs = None
+        self._launch_deltas: Tuple[int, ...] = ()
+        self.replays = 0
+
+    def _frame(self, lr_u8, pyr_prev, fs, track_map):
+        left = lr_u8[0].to(torch.float32)
+        fs2, pyr, packed = frontend_mod.track_frame(left, pyr_prev, fs, track_map, self.intr,
+                                                    self.cfg)
+        return left, fs2, pyr, packed
+
+    def run(self, lr_u8: torch.Tensor, pyr_prev, fs: FrontendState, map_state
+            ) -> Tuple[torch.Tensor, FrontendState, Tuple[torch.Tensor, ...], torch.Tensor]:
+        """One tracked frame: copy every input into its static buffer, replay
+        (or call, on the CPU), and return the static outputs (left_f32, fs,
+        pyr, packed outcome), valid until the next call."""
+        src = (lr_u8, tuple(pyr_prev), fs, frontend_mod.TrackMap.of(map_state))
+        if self._inputs is None:
+            self._inputs = _clone(src)
+        else:
+            _copy_into(self._inputs, src)
+        if self.device.type == "cpu":
+            out = self._frame(*self._inputs)
+            if self._outputs is None:
+                self._outputs = _clone(out)
+            else:
+                _copy_into(self._outputs, out)
+            return self._outputs
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        for counter, delta in zip(_kernel_counters(), self._launch_deltas):
+            counter.launches += delta
+        return self._outputs
+
+    def _capture(self) -> None:
+        counters = _kernel_counters()
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._frame(*self._inputs)  # warm-up: the eager frame, results discarded
+        stream.wait_stream(side)
+        warm = [c.launches for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._outputs = self._frame(*self._inputs)
+        self._launch_deltas = tuple(c.launches - w for c, w in zip(counters, warm))
+        for c, w in zip(counters, warm):
+            c.launches = w
+        self.graph = graph

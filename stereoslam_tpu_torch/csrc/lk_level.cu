@@ -15,6 +15,7 @@
 //                          pyramidal_lk): every level coarse to fine, the
 //                          final error, the status, and with forward_backward
 //                          > 0 the backward pass and the round-trip test;
+//                          optionally gated by a device flag;
 //   lk_level_launch        one level, no fusion;
 //   lk_final_error_launch  the mean |J - T| over the window at a given flow.
 // The main path launches only lk_pyramid; the per-level entries exist to hold
@@ -339,11 +340,22 @@ __device__ __forceinline__ bool make_ctx(Ctx& c, int& f, int N) {
 __global__ void lk_pyramid_kernel(Pyramid a, Pyramid b, int n_levels, int fb_levels,
                                   const float* __restrict__ pts_prev,
                                   const float* __restrict__ pts_init, int N, Pass fwd, Pass bwd,
-                                  float fb_threshold, float* __restrict__ pts_out,
+                                  float fb_threshold, const uint8_t* __restrict__ gate,
+                                  float* __restrict__ pts_out,
                                   uint8_t* __restrict__ status_out, float* __restrict__ err_out) {
   Ctx c;
   int f;
   if (!make_ctx(c, f, N)) return;
+  if (gate != nullptr && *gate == 0) {
+    // Gated off: the call keeps no track (points at their seeds, error 0).
+    if (c.lane == 0) {
+      pts_out[2 * f] = pts_init[2 * f];
+      pts_out[2 * f + 1] = pts_init[2 * f + 1];
+      status_out[f] = 0;
+      err_out[f] = 0.0f;
+    }
+    return;
+  }
   const float px = pts_prev[2 * f], py = pts_prev[2 * f + 1];
   float qx, qy, err;
   bool status;
@@ -417,13 +429,17 @@ bool launch_shape(int N, int smem_bytes_per_feature, dim3& grid, dim3& block, si
 // Plain C entry points (bound with ctypes).  Each launches on `stream` and
 // returns a CUDA error code (cudaGetLastError() after the launch) so the
 // caller can raise on a refused launch.  `smem_bytes_per_feature` is the
-// caller's size of the staged windows; a mismatch is refused.
+// caller's size of the staged windows; a mismatch is refused.  `gate`, where
+// not null, points to one byte on the device that the kernel reads first:
+// 0 makes the call keep no track (status 0, points at pts_init, error 0)
+// without touching the images, so a host-free caller can launch a
+// conditional call unconditionally; null or nonzero runs the call as is.
 extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* next, const int* hs,
                                  const int* ws, int n_levels, int fb_levels, const float* pts_prev,
                                  const float* pts_init, int N, int iters, int fb_iters, float eps2,
                                  float min_eig, float max_error, float fb_threshold,
-                                 float* pts_out, uint8_t* status_out, float* err_out,
-                                 int smem_bytes_per_feature, void* stream) {
+                                 const uint8_t* gate, float* pts_out, uint8_t* status_out,
+                                 float* err_out, int smem_bytes_per_feature, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0) return 0;
   Pyramid a{}, b{};
@@ -441,7 +457,7 @@ extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* nex
     return static_cast<int>(cudaErrorInvalidValue);
   }
   lk_pyramid_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, b, n_levels, fb_levels, pts_prev, pts_init, N, fwd, bwd, fb_threshold, pts_out,
+      a, b, n_levels, fb_levels, pts_prev, pts_init, N, fwd, bwd, fb_threshold, gate, pts_out,
       status_out, err_out);
   return static_cast<int>(cudaGetLastError());
 }

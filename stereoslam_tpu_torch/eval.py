@@ -114,6 +114,7 @@ def run_world_eval(
     cfg_overrides: Optional[dict] = None,
     device=None,
     on_slam: Optional[Callable] = None,
+    readback_lag: Optional[int] = None,
 ) -> dict:
     """Run the full pipeline on the world circuit at shipped defaults.
 
@@ -123,6 +124,7 @@ def run_world_eval(
     pass.  ``device``: the card unless the caller asks for ``"cpu"``.
     ``on_slam``: called with each ``StereoSlam`` before it is driven (the
     loop-ON one first), for callers that time its stages or keep its state.
+    ``readback_lag``: passed to both ``StereoSlam``s (None: their default).
     """
     from stereoslam_tpu_torch.config import CameraConfig, SlamConfig
     from stereoslam_tpu_torch.core.system import StereoSlam
@@ -167,7 +169,7 @@ def run_world_eval(
     def make_slam(enable_loop: bool) -> StereoSlam:
         model = DescriptorModel() if descriptor == "hog" else None
         slam = StereoSlam(cfg, device=dev, enable_backend=True, enable_loop=enable_loop,
-                          descriptor_model=model)
+                          readback_lag=readback_lag, descriptor_model=model)
         if on_slam is not None:
             on_slam(slam)
         return slam

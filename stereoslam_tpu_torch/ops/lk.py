@@ -13,7 +13,7 @@ per-level functions of ``ops/lk_level.py``.  The JAX package's three-way
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -33,7 +33,7 @@ from stereoslam_tpu_torch.ops.lk_level import (
     window_plan,
 )
 
-__all__ = ["FlowResult", "lk_pyramid", "lk_pyramid_plain", "pyramidal_lk"]
+__all__ = ["FlowResult", "gated_off", "lk_pyramid", "lk_pyramid_plain", "pyramidal_lk"]
 
 
 class FlowResult(NamedTuple):
@@ -92,6 +92,14 @@ def _compose(
     return FlowResult(points=pts_next, status=status, error=err)
 
 
+def gated_off(pts_init: torch.Tensor) -> FlowResult:
+    """What a call gated off returns: no track kept, points at the seeds."""
+    n = pts_init.shape[0]
+    return FlowResult(points=pts_init.clone(),
+                      status=torch.zeros((n,), dtype=torch.bool, device=pts_init.device),
+                      error=torch.zeros((n,), dtype=torch.float32, device=pts_init.device))
+
+
 def lk_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, **kw) -> FlowResult:
     """The plain version of :func:`lk_pyramid`: the per-level plain functions
     composed level by level."""
@@ -117,6 +125,7 @@ def lk_pyramid(
     forward_backward: float = 0.0,
     fb_iters: int = 10,
     fb_levels: int = 0,
+    gate: Optional[torch.Tensor] = None,
 ) -> FlowResult:
     """Track ``pts_prev`` (N, 2) from ``pyr_prev`` to ``pyr_next`` (finest
     level first), seeded at ``pts_init``.
@@ -127,12 +136,26 @@ def lk_pyramid(
     and rejects tracks whose round trip misses the start by more than that
     many pixels — the guard against ghost locks from biased seeds.
 
-    On CUDA tensors the whole call is one kernel launch, counted in
-    ``lk_pyramid.launches``; on CPU tensors it runs :func:`lk_pyramid_plain`.
+    ``gate``, a 0-dim bool tensor on the images' device, makes the call
+    conditional without a host read (JAX: ``lax.cond`` around the call):
+    where it is false the call keeps no track (status all false, points at
+    ``pts_init``, error 0); where it is true, or absent, the call is as
+    without it.
+
+    On CUDA tensors the whole call is one kernel launch, gated or not,
+    counted in ``lk_pyramid.launches``; on CPU tensors it runs
+    :func:`lk_pyramid_plain`, or returns the gated-off result after reading
+    the gate on the host.
     """
     kw = dict(window=window, iters=iters, eps=eps, max_error=max_error,
               forward_backward=forward_backward, fb_iters=fb_iters, fb_levels=fb_levels)
+    if gate is not None and (gate.dim() != 0 or gate.dtype != torch.bool
+                             or gate.device != pyr_prev[0].device):
+        raise ValueError(f"gate must be a 0-dim bool tensor on {pyr_prev[0].device}, got "
+                         f"{tuple(gate.shape)} {gate.dtype} on {gate.device}")
     if not _on_cuda("lk_pyramid", pyr_prev[0]):
+        if gate is not None and not bool(gate):
+            return gated_off(pts_init)
         return lk_pyramid_plain(pyr_prev, pyr_next, pts_prev, pts_init, **kw)
     dev = pyr_prev[0].device
     n_levels = len(pyr_prev)
@@ -166,6 +189,7 @@ def lk_pyramid(
             dims(*(a.shape[0] for a in pyr_prev)), dims(*(a.shape[1] for a in pyr_prev)),
             n_levels, int(fb_levels), pts_prev.data_ptr(), pts_init.data_ptr(), N, int(iters),
             int(fb_iters), float(eps * eps), MIN_EIG, float(max_error), float(forward_backward),
+            None if gate is None else gate.data_ptr(),
             points.data_ptr(), status.data_ptr(), error.data_ptr(),
             window_plan().bytes_per_feature, _launch_stream(dev),
         )

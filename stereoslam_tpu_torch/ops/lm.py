@@ -7,12 +7,18 @@ reference's 4-rounds-of-10-iterations chi^2 outlier schedule
 with masking instead of edge removal.  ``T_cw`` maps world -> camera and the
 Jacobian is w.r.t. the left-multiplicative update ``exp(dx) @ T_cw``.
 
-The early exits of the JAX while-loops become host reads of one scalar.
+JAX's ``while_loop`` over a round's iterations becomes a fixed loop of
+``iters`` steps carrying a ``done`` flag: once a step is accepted and
+converged, the pose and the damping stay frozen (``torch.where``) for the
+rest of the round, which gives the result of the early exit bit for bit and
+reads nothing back from the card, so the call can be captured in a CUDA
+graph.  On CPU tensors, where a read is free, the loop still stops at
+``done``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,6 +92,7 @@ def optimize_pose(
     iters: int = 10,
     chi2_threshold: float = 5.991,
     damping0: float = 1e-3,
+    host_exit: Optional[bool] = None,
 ) -> PoseOptResult:
     """Pose-only robust LM with the reference's outlier schedule
     (frontend.cpp:213-247): after each round observations with
@@ -93,17 +100,23 @@ def optimize_pose(
     weighting only in rounds 0-1; accept a step iff the robust cost drops
     (damping x0.5 on accept, x4 on reject); stop a round early only on an
     accepted, converged step; orthonormalize the result.
+
+    ``host_exit``: end a round at ``done`` by reading it on the host
+    (default: on CPU tensors only); the result is the same either way.
     """
     delta2 = chi2_threshold
     T = T_cw0
     inlier = valid
-    lam = torch.tensor(damping0, dtype=T_cw0.dtype, device=T_cw0.device)
+    lam = torch.full((), damping0, dtype=T_cw0.dtype, device=T_cw0.device)
+    if host_exit is None:
+        host_exit = T_cw0.device.type == "cpu"
 
     def robust_cost(chi2, mask):
         return (torch.minimum(chi2, delta2 + torch.sqrt(delta2 * chi2)) * mask).sum()
 
     for rnd in range(rounds):
         use_huber = rnd < 2
+        done = torch.zeros((), dtype=torch.bool, device=T_cw0.device)
         for _ in range(iters):
             px, J = project_jacobian(T, X_w, intr)
             r = obs_px - px
@@ -118,10 +131,12 @@ def optimize_pose(
             chi2_new = (r2 * r2).sum(-1)
             mask = (valid & inlier).to(chi2.dtype)
             improved = robust_cost(chi2_new, mask) < robust_cost(chi2, mask)
-            T = torch.where(improved, T_new, T)
-            lam = torch.where(improved, torch.clamp(lam * 0.5, min=1e-6),
-                              torch.clamp(lam * 4.0, max=1e2))
-            if bool(improved & ((dx * dx).sum() < 1e-12)):
+            lam_new = torch.where(improved, torch.clamp(lam * 0.5, min=1e-6),
+                                  torch.clamp(lam * 4.0, max=1e2))
+            T = torch.where(improved & ~done, T_new, T)
+            lam = torch.where(done, lam, lam_new)
+            done = done | (improved & ((dx * dx).sum() < 1e-12))
+            if host_exit and bool(done):
                 break
         r = obs_px - project_only(T, X_w, intr)
         inlier = valid & ((r * r).sum(-1) <= delta2)

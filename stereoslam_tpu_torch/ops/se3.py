@@ -149,8 +149,12 @@ def left_update(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 
 
 def orthonormalize(T: torch.Tensor) -> torch.Tensor:
-    """Project the rotation block back onto SO(3) via SVD."""
-    u, _, vt = torch.linalg.svd(T[..., :3, :3])
+    """Project the rotation block back onto SO(3) via SVD (``ops/svd.py``:
+    ``torch.linalg.svd``'s arithmetic, and on float32 CUDA tensors no host
+    read, so the tracked frame's CUDA graph can hold it)."""
+    from stereoslam_tpu_torch.ops.svd import svd
+
+    u, _, vt = svd(T[..., :3, :3])
     det = torch.linalg.det(u @ vt)
     u = torch.cat([u[..., :, :2], u[..., :, 2:] * torch.sign(det)[..., None, None]], dim=-1)
     return from_Rt(u @ vt, T[..., :3, 3])

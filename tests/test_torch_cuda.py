@@ -1,6 +1,7 @@
 """The LK kernel on the card against its plain PyTorch version, the fused
 pyramidal call against the same call composed of per-level launches, and the
-loop-closing modules on the card against the CPU.
+loop-closing modules on the card against the CPU, and the tracked frame's
+CUDA graph against the eager frame.
 
 CUDA C++ has no CPU mode, so these tests skip where no NVIDIA GPU is.  The
 file imports torch, numpy and the port only (no JAX, which the machine with
@@ -19,7 +20,10 @@ the threshold.  The CALC encoder on the card is held to the CPU within 1e-5
 (float32, TF32 off), descriptor matching exactly.  The world renderer on the
 card is held to the CPU by the CPU tests' tolerances against JAX (median
 |d| <= 1e-3, 99.9% within 0.05, uint8 equal on 99.5%); the device feed and a
-checkpoint round trip must be exact.
+checkpoint round trip must be exact.  A replay of the tracked frame's graph
+runs the same kernels on the same inputs as the eager frame, so it equals
+it bit for bit; the eager frame makes no host sync; ``lk_pyramid`` gated on
+equals the ungated call bit for bit.
 """
 
 import numpy as np
@@ -171,6 +175,93 @@ def test_pyramidal_lk_is_one_launch_per_call(frames):
     before = counts()
     pyramidal_lk(pa, pb, pts, pts + 1.0, iters=20, forward_backward=2.0, fb_iters=10)
     assert counts() == (before[0] + 1, before[1], before[2])
+
+
+def test_lk_pyramid_gate_on_the_card(frames):
+    """Gated on, the launch equals the ungated one bit for bit; gated off it
+    keeps no track (status all false, points at the seeds, error 0).  Both
+    are one counted launch."""
+    a, b, pts = frames
+    pa, pb = build_lk_pyramid(a, 3), build_lk_pyramid(b, 3)
+    init = pts + 1.5
+    kw = dict(iters=20, forward_backward=2.0, fb_iters=10)
+    n0 = plk_pyramid.lk_pyramid.launches
+    ungated = plk_pyramid.lk_pyramid(pa, pb, pts, init, **kw)
+    on = plk_pyramid.lk_pyramid(pa, pb, pts, init, gate=torch.ones((), dtype=torch.bool,
+                                                                     device=a.device), **kw)
+    off = plk_pyramid.lk_pyramid(pa, pb, pts, init, gate=torch.zeros((), dtype=torch.bool,
+                                                                      device=a.device), **kw)
+    torch.cuda.synchronize()
+    assert plk_pyramid.lk_pyramid.launches == n0 + 3
+    assert all(torch.equal(x, y) for x, y in zip(on, ungated)) and bool(on.status.any())
+    assert not bool(off.status.any()) and torch.equal(off.points, init)
+    assert not bool(off.error.any())
+
+
+def test_svd_on_the_card_equals_torch_linalg_svd(dev):
+    """ops/svd.py calls cuSOLVER's batched Jacobi SVD with torch's parameters
+    and no host read: the same bits as torch.linalg.svd, and the same
+    layouts (U column-major, Vh row-major)."""
+    from stereoslam_tpu_torch.ops.svd import svd
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, _ = torch.linalg.qr(torch.randn(64, 3, 3, device=dev, generator=gen))
+    mats = q + 1e-6 * torch.randn(64, 3, 3, device=dev, generator=gen)
+    for batch in (mats[0], mats):
+        got, want = svd(batch), torch.linalg.svd(batch)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y) and x.stride() == y.stride()
+
+
+def _vo_slam(dev, n_frames=12):
+    seq = generate_sequence(n_frames=n_frames, trajectory="forward", seed=3)
+    cfg = pconfig.SlamConfig(
+        camera=pconfig.CameraConfig(fx=seq.fx, fy=seq.fy, cx=seq.cx, cy=seq.cy, fx_right=seq.fx,
+                                    fy_right=seq.fy, cx_right=seq.cx, cy_right=seq.cy,
+                                    bf=seq.fx * seq.baseline),
+        features=pconfig.FeatureConfig(n_init_features=200, n_new_features=100, max_features=256,
+                                       num_features_init_good=50, num_features_tracking_good=50,
+                                       num_features_tracking_bad=10),
+        map=pconfig.MapConfig(max_keyframes=256, max_landmarks=20000),
+        image_height=seq.left.shape[1], image_width=seq.left.shape[2],
+    )
+    return seq, StereoSlam(cfg, device=dev, enable_loop=False)
+
+
+def test_graph_replay_equals_eager_track_frame(dev):
+    """Each replay of the tracked frame's CUDA graph against the eager
+    track_frame on the same static inputs, bit for bit, over 10 frames
+    (keyframe frames among them)."""
+    from stereoslam_tpu_torch.core.graphs import _flat
+
+    seq, slam = _vo_slam(dev)
+    g = slam.track_graph
+    for t in range(len(seq.left)):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+        if t < 2:
+            continue
+        eager = g._frame(*g._inputs)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(_flat(eager), _flat(g._outputs))), t
+    assert g.replays == len(seq.left) - 1 and int(slam.map.n_kf) >= 2
+
+
+def test_eager_track_frame_makes_no_host_sync(dev):
+    from stereoslam_tpu_torch.core import frontend as pfrontend
+
+    seq, slam = _vo_slam(dev, n_frames=3)
+    for t in range(2):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+    lr = torch.from_numpy(np.stack([seq.left[2], seq.right[2]]).astype(np.uint8)).to(dev)
+    track_map = pfrontend.TrackMap.of(slam.map)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pfrontend.track_frame(lr[0].float(), slam._pyr_prev, slam.fs, track_map,
+                                    slam.intr_left, slam.cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out[2].shape == (pfrontend.OUTCOME_SIZE,)
 
 
 def test_lk_pyramid_wrapper_rejects_what_the_kernel_does_not_take(frames):

@@ -99,3 +99,13 @@ def test_triangulate_stereo(rng, depth):
     # exact point too), so points agree to atol 1e-5 plus 1e-4 relative.
     np.testing.assert_allclose(pp.numpy(), np.asarray(pj), atol=ATOL, rtol=1e-4)
     np.testing.assert_allclose(pp.numpy(), p_w, atol=ATOL, rtol=1e-4)
+
+
+def test_svd_on_the_cpu_is_torch_linalg_svd(rng):
+    """ops/svd.py is torch.linalg.svd itself on CPU tensors (the card's
+    cuSOLVER call is held to it in tests/test_torch_cuda.py)."""
+    from stereoslam_tpu_torch.ops.svd import svd
+
+    A = _t(rng.normal(size=(5, 3, 3)).astype(np.float32))
+    for x, y in zip(svd(A), torch.linalg.svd(A)):
+        assert torch.equal(x, y)

@@ -180,6 +180,29 @@ def _pyramidal_lk_by_levels(pyr_prev, pyr_next, pts_prev, pts_init, window=11, i
     return plk_pyramid.FlowResult(points=pts_next, status=status, error=err)
 
 
+
+@pytest.mark.parametrize("open_gate", [True, False], ids=["on", "off"])
+def test_lk_pyramid_gate_on_the_cpu(pair, open_gate):
+    """A gate that is on changes nothing; one that is off keeps no track:
+    status all false, points at the seeds, error 0 (the kernel's gated-off
+    launch writes the same)."""
+    a, b, pts = pair
+    pyr_a, pyr_b = p_pyramid(_t(a), 3), p_pyramid(_t(b), 3)
+    init = _t(pts) + 1.5
+    kw = dict(iters=20, forward_backward=2.0)
+    gate = torch.tensor(open_gate)
+    got = plk_pyramid.lk_pyramid(pyr_a, pyr_b, _t(pts), init, gate=gate, **kw)
+    if open_gate:
+        ungated = plk_pyramid.lk_pyramid(pyr_a, pyr_b, _t(pts), init, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, ungated))
+        assert bool(got.status.any())
+    else:
+        assert not bool(got.status.any()) and got.status.shape == (len(pts),)
+        assert torch.equal(got.points, init) and not bool(got.error.any())
+    with pytest.raises(ValueError, match="gate"):
+        plk_pyramid.lk_pyramid(pyr_a, pyr_b, _t(pts), init, gate=gate.reshape(1), **kw)
+
+
 @pytest.mark.parametrize("levels,fb,fb_levels", [(3, 2.0, 0), (3, 0.0, 0), (4, 2.0, 2),
                                                  (4, 0.0, 0)])
 def test_lk_pyramid_plain_equals_the_per_level_composition(rng, pair, levels, fb, fb_levels):

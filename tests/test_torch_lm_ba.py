@@ -29,6 +29,7 @@ from stereoslam_tpu.ops.schur import BAProblem as JProblem, solve_window_ba as j
 from stereoslam_tpu_torch import bridge  # noqa: E402
 from stereoslam_tpu_torch.config import MapConfig, SlamConfig  # noqa: E402
 from stereoslam_tpu_torch.core import maintenance as pmaint  # noqa: E402
+from stereoslam_tpu_torch.ops import lm as plm  # noqa: E402
 from stereoslam_tpu_torch.ops.camera import Intrinsics as PIntr  # noqa: E402
 from stereoslam_tpu_torch.ops.lm import optimize_pose as p_optimize_pose  # noqa: E402
 from stereoslam_tpu_torch.ops.schur import BAProblem as PProblem, solve_window_ba as p_solve  # noqa: E402
@@ -40,13 +41,15 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("n_out,n_invalid", [(0, 0), (40, 0), (30, 25)])
-def test_optimize_pose_matches(rng, n_out, n_invalid):
+@pytest.mark.parametrize("n_out,n_invalid,noise_px", [
+    pytest.param(0, 0, 0.5, id="0-0"), pytest.param(40, 0, 0.5, id="40-0"),
+    pytest.param(30, 25, 0.5, id="30-25"), pytest.param(0, 0, 0.0, id="done-in-round-0")])
+def test_optimize_pose_matches(rng, monkeypatch, n_out, n_invalid, noise_px):
     n = 200
     X = rng.uniform([-10, -5, 4], [10, 5, 50], (n, 3)).astype(np.float32)
     T_true = jse3.exp(jnp.asarray([0.3, -0.1, 0.8, 0.02, -0.04, 0.01], jnp.float32))
     px = np.asarray(world2pixel(jnp.asarray(X), T_true, JIntr.create(*K_ARGS))).copy()
-    px += rng.normal(0, 0.5, px.shape).astype(np.float32)
+    px += rng.normal(0, noise_px, px.shape).astype(np.float32)
     px[:n_out] += (rng.uniform(20, 80, (n_out, 2)) * np.sign(rng.standard_normal((n_out, 2))))
     px = px.astype(np.float32)
     valid = np.ones(n, bool)
@@ -60,6 +63,18 @@ def test_optimize_pose_matches(rng, n_out, n_invalid):
     np.testing.assert_array_equal(np.asarray(rj.inlier), rp.inlier.numpy())
     assert int(rj.num_inliers) == int(rp.num_inliers)
     np.testing.assert_allclose(np.asarray(rj.chi2), rp.chi2.numpy(), atol=1e-2, rtol=1e-3)
+    # The fixed loop that the card runs (no host read, frozen once done)
+    # gives the host's early exit bit for bit.
+    fixed = p_optimize_pose(_t(T0), _t(X), _t(px), _t(valid), PIntr.create(*K_ARGS),
+                            host_exit=False)
+    assert all(torch.equal(a, b) for a, b in zip(rp, fixed))
+    if noise_px == 0.0:
+        # Exact observations: round 0 converges, and exits, before its 10th step.
+        calls = []
+        real = plm.solve6
+        monkeypatch.setattr(plm, "solve6", lambda *a: (calls.append(1), real(*a))[1])
+        p_optimize_pose(_t(T0), _t(X), _t(px), _t(valid), PIntr.create(*K_ARGS), rounds=1)
+        assert len(calls) < 10
 
 
 def _ba_problem(rng, W=5, C=120, noise_px=0.5, pose_noise=0.005, lm_noise=0.02,
