@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # the full run: VO, CLI, CALC, loop-closing and world phases
+    python3 chip_smoke.py                # the full run: VO, CLI, CALC, loop-closing, world and
+                                         # multi-sequence phases
     python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
 
 Phases, each printing its lines and stopping the run with a non-zero exit on
@@ -77,7 +78,26 @@ failure:
              checkpoint into a fresh ``StereoSlam``; prints FPS, p50, ATE,
              edges, per-stage keyframe times, and the refused loop
              verifications by the guard that refused them.
-10. profile — with ``--profile N``: device busy share, the top kernels, the
+10. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
+             ``MultiSeqVO``): (a) one batched ``lk_pyramid`` launch at bench.py
+             Phase M's shapes (B=8, 240x376, 3 levels, 400 slots a sequence)
+             against 8 single launches (bit for bit), with a mixed gate
+             vector, against the batched plain version, and timed against
+             the 8 single launches; (b) Phase M's workload (8 synthetic
+             sequences, 72 frames, 16 warm-up, ``BatchFeed``, the defaults):
+             no LOST, >= 3 keyframes a sequence, at most ``kf_sub`` a step,
+             one graph replay a step, the batched LK launch on every step,
+             the pinned per-sequence (KFs, ATE); then a checking run: replay
+             against the eager batched step (bit for bit), each sequence's
+             batched step against the single-sequence ``track_frame``
+             (flags equal, tracks and ``T_rk`` within tolerances), one host
+             read a keyframe-free step, the step's time against 8
+             single-sequence graphs, the host stages and the device busy
+             share; (c) the ``MULTISEQ_LOOP.json`` experiment
+             (``scripts/torch_multiseq_world.py``: two world circuits loop ON
+             and OFF): no LOST, every edge a true revisit, ATE ON <= OFF a
+             sequence, printed beside the TPU record with the refusals.
+11. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame
              for keyframe, replenish and keyframe-free frames.
 
@@ -1376,7 +1396,7 @@ REFUSAL = re.compile(r"loop candidate KF (\d+) -> (\d+) not verified: (\d+) pair
                      r"inliers, pose_err ([\d.]+) m \(odo ([\d.]+) m\)")
 
 
-def summarize_refusals(lines, loop_cfg, card: str) -> None:
+def summarize_refusals(lines, loop_cfg, card: str, prefix: str = "world") -> None:
     """The loop-ON run's refused verifications (core/loopclosing.py logs
     each: pairs, pose inliers, pose error, odometry since the loop KF), held
     to the verification's guards: pairs >= min_matches, pose inliers >=
@@ -1387,7 +1407,7 @@ def summarize_refusals(lines, loop_cfg, card: str) -> None:
     refused; the logged numbers are rounded (2 decimals for the error, 1 for
     the odometry)."""
     c = loop_cfg
-    rows = [tuple(float(v) for v in m.groups()) for m in map(REFUSAL.match, lines) if m]
+    rows = [tuple(float(v) for v in m.groups()) for m in map(REFUSAL.search, lines) if m]
     guards = {
         f"pairs < min_matches {c.min_matches}": lambda p, i, e, o: p < c.min_matches,
         f"pose inliers < min_inliers {c.min_inliers} (or no PnP pose)":
@@ -1403,14 +1423,14 @@ def summarize_refusals(lines, loop_cfg, card: str) -> None:
     alone = {name: sum(h and sum(hits[k][j] for k in hits) == 1 for j, h in enumerate(v))
              for name, v in hits.items()}
     unexplained = sum(not any(hits[k][j] for k in hits) for j in range(len(rows)))
-    print(f"world: {len(rows)} refused verifications in the loop-ON run; by guard (refused, "
+    print(f"{prefix}: {len(rows)} refused verifications in the loop-ON run; by guard (refused, "
           f"refused by it alone): " + "; ".join(f"{k}: {sum(v)}, {alone[k]}" for k, v in
                                                   hits.items())
           + f"; by no guard the line shows (PnP failed): {unexplained} [{card}]", flush=True)
     for r in rows:
         kf, lp, pairs, inl, err, odo = r
         allowed = min(c.max_correction_frac * odo, c.max_correction_cap) + c.max_correction_abs
-        print(f"world: refused KF {int(kf)} -> {int(lp)}: {int(pairs)} pairs, {int(inl)} pose "
+        print(f"{prefix}: refused KF {int(kf)} -> {int(lp)}: {int(pairs)} pairs, {int(inl)} pose "
               f"inliers, pose_err {err:.2f} m against {allowed:.2f} m allowed (odo {odo:.1f} m)",
               flush=True)
 
@@ -1515,6 +1535,487 @@ def phase_world(dev, card: str):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Phase multiseq: the batched multi-sequence mode
+# ---------------------------------------------------------------------------
+
+# bench.py Phase M (bench.py:430-468): B=8 sequences at 240x376, seeds
+# 20-27, 2000 points, forward at 0.6 m/frame, fx 320, baseline 0.54, 72
+# frames of which 16 warm up, SlamConfig defaults, MultiSeqVO defaults.
+MS_BATCH, MS_FRAMES, MS_WARMUP, MS_SEED0 = 8, 72, 16, 20
+MS_MIN_KF = 3
+MS_GATE = (True, False, True, True, False, True, False, True)
+MS_CHECK_STEPS = (2, 7, 8)      # steps held to the eager and the single-sequence step
+MS_CHECK_FRAMES = 32            # frames of the checking run (staged in advance)
+MS_REPLAYS = 20                 # replays of one step's graph, timed
+# The batched step against track_frame on the card: vmap turns each
+# sequence's reductions and 4x4 products into batched kernels that round
+# differently from the single ones, so LK's seeds and the LM's accept tests
+# differ in their last bits.  Flags must be equal, the tracks within the
+# kernel-vs-plain tolerances, T_rk within MS_TRK_TOL (the largest seen in
+# a run on an NVIDIA H100 80GB HBM3: 2.0e-4).
+MS_TRK_TOL = 1e-3
+# The port's Phase M run repeats bit for bit on the card, so (KFs, ATE m)
+# per sequence are pinned from a run on an NVIDIA H100 80GB HBM3.
+EXPECTED_MULTISEQ_RUN = ((11, 0.3997), (11, 0.4172), (11, 0.1277), (11, 0.3209), (10, 0.0627),
+                         (10, 0.3781), (10, 0.244), (10, 0.2496))
+# The MULTISEQ_LOOP.json experiment: B=2 world circuits, seeds 1 and 2.
+MS_WORLD_BATCH = 2
+MS_ATE_SLACK_M = 1e-3
+
+
+def multiseq_sequence(b: int):
+    from stereoslam_tpu_torch.utils.synthetic import generate_sequence
+
+    return generate_sequence(n_frames=MS_FRAMES, h=240, w=376, fx=320.0, baseline=0.54,
+                             n_points=2000, trajectory="forward", speed=0.6, seed=MS_SEED0 + b)
+
+
+def multiseq_sequences():
+    """The B sequences, made in parallel processes (the generator splats
+    each point in a Python loop)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(max_workers=min(MS_BATCH, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(multiseq_sequence, range(MS_BATCH)))
+
+
+def multiseq_config():
+    from stereoslam_tpu_torch.config import CameraConfig, SlamConfig
+
+    return SlamConfig(
+        camera=CameraConfig(fx=320.0, fy=320.0, cx=188.0, cy=120.0, fx_right=320.0,
+                            fy_right=320.0, cx_right=188.0, cy_right=120.0, bf=320.0 * 0.54),
+        image_height=240, image_width=376,
+    )
+
+
+def multiseq_world_script():
+    """scripts/torch_multiseq_world.py, the port's MULTISEQ_LOOP experiment."""
+    path = Path(__file__).resolve().parent / "scripts" / "torch_multiseq_world.py"
+    spec = importlib.util.spec_from_file_location("torch_multiseq_world", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counters():
+    """The kernel wrappers' launch counters, as (wrapper, attribute) pairs."""
+    from stereoslam_tpu_torch.core.graphs import _kernel_counters
+
+    return _kernel_counters()
+
+
+def reset_counters() -> None:
+    for fn, attr in counters():
+        setattr(fn, attr, 0)
+
+
+class KeepCounters:
+    """Leaves the launch counters as they were: launches made to compare a
+    kernel or a step with another version do not count."""
+
+    def __enter__(self):
+        self.saved = [getattr(fn, attr) for fn, attr in counters()]
+
+    def __exit__(self, *exc):
+        for (fn, attr), v in zip(counters(), self.saved):
+            setattr(fn, attr, v)
+
+
+def check_batched_kernel(dev, seqs, cfg, card: str):
+    """(a) One batched lk_pyramid launch at the Phase M shapes (B=8,
+    240x376, 3 levels, 400 FAST corners a sequence from frame 0 into frame
+    1, the temporal call's settings) against 8 single launches (bit for
+    bit), gated by a mixed vector, against the batched plain version, and
+    timed against the 8 single launches."""
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+    from stereoslam_tpu_torch.ops.fast import detect_keypoints
+    from stereoslam_tpu_torch.ops.image import build_lk_pyramid
+
+    t = cfg.tracking
+    N = cfg.features.max_features
+    A = torch.stack([torch.from_numpy(q.left[0].astype(np.uint8)) for q in seqs]).to(dev).float()
+    Bn = torch.stack([torch.from_numpy(q.left[1].astype(np.uint8)) for q in seqs]).to(dev).float()
+    # All N slots, as the step's temporal call takes them: the corners and,
+    # where a frame has fewer than N, empty slots at (0, 0).
+    kps = [detect_keypoints(A[b], N) for b in range(len(seqs))]
+    n_corners = [int(k.valid.sum()) for k in kps]
+    if min(n_corners) < cfg.features.num_features_init_good:
+        fail("multiseq", "corners", f"FAST corners per sequence {n_corners}, fewer than the "
+             f"{cfg.features.num_features_init_good} that initialization needs")
+    P = torch.stack([k.xy for k in kps]).contiguous()
+    gen = torch.Generator().manual_seed(0)
+    init = (P + (torch.rand(P.shape, generator=gen) * 16.0 - 8.0).to(dev)).contiguous()
+    lk_kw = dict(window=t.lk_window, iters=t.lk_iters, eps=t.lk_eps, max_error=30.0,
+                 forward_backward=t.lk_forward_backward, fb_iters=t.lk_fb_iters,
+                 fb_levels=t.lk_fb_levels)
+    pa, pb = build_lk_pyramid(A, t.lk_levels), build_lk_pyramid(Bn, t.lk_levels)
+    views = [([x[b] for x in pa], [y[b] for y in pb], P[b], init[b]) for b in range(len(seqs))]
+    gate = torch.tensor(MS_GATE, device=dev)
+    n0 = (L.lk_pyramid.launches, L.lk_pyramid.batched_launches)
+    got = L.lk_pyramid(pa, pb, P, init, **lk_kw)
+    gated = L.lk_pyramid(pa, pb, P, init, gate=gate, **lk_kw)
+    n1 = (L.lk_pyramid.launches, L.lk_pyramid.batched_launches)
+    single = [L.lk_pyramid(*v, **lk_kw) for v in views]
+    plain = L.lk_pyramid_plain(pa, pb, P, init, **lk_kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x[b], y) for b in range(len(seqs)) for x, y in zip(got, single[b]))
+    gate_ok = all(
+        all(torch.equal(x[b], y) for x, y in zip(gated, single[b])) if on else
+        (not bool(gated.status[b].any()) and torch.equal(gated.points[b], init[b])
+         and not bool(gated.error[b].any()))
+        for b, on in enumerate(MS_GATE))
+    agree = (got.status == plain.status).float().mean().item()
+    both = got.status & plain.status
+    d = (got.points - plain.points).norm(dim=-1)[both]
+    med, p99 = d.median().item(), d.quantile(0.99).item()
+    worst = (got.points - plain.points).abs()[both].max().item()
+    print(f"multiseq: lk_pyramid batched, B={len(seqs)} x N={N} slots (FAST corners "
+          f"{n_corners}) at {tuple(pa[0].shape[1:])} -> "
+          f"{tuple(pa[-1].shape[1:])}, {int(got.status.sum())} kept: against {len(seqs)} single "
+          f"launches {'bit-identical' if same else 'DIFFER'} (points, status, error); gate "
+          f"{list(MS_GATE)}: {'on bit-identical, off no track kept' if gate_ok else 'WRONG'}; "
+          f"against the batched plain version: status agree {agree:.4f}, |dpoint| median "
+          f"{med:.2e} p99 {p99:.2e} px; {n1[0] - n0[0]} counted launches for 2 batched calls, "
+          f"{n1[1] - n0[1]} batched", flush=True)
+    if not same:
+        fail("multiseq", "batched vs single launches",
+             "a sequence of the batched launch differs from its own single launch")
+    if not gate_ok:
+        fail("multiseq", "batched gate", "a gated-on sequence differs from the ungated launch, or "
+             "a gated-off sequence keeps a track")
+    if n1 != (n0[0] + 2, n0[1] + 2):
+        fail("multiseq", "batched launch count", f"launch counters moved by "
+             f"{(n1[0] - n0[0], n1[1] - n0[1])} for 2 batched calls")
+    if not (agree >= TOL_GOOD_AGREE and med < TOL_MEDIAN_PX and p99 < TOL_P99_PX):
+        fail("multiseq", "batched vs plain", "the batched launch disagrees with the batched plain "
+             "version")
+
+    # Time: the batched launch and the 8 single launches, each a CUDA graph
+    # of back-to-back launches, in turns (batched, single, single, batched).
+    def eight():
+        for v in views:
+            L.lk_pyramid(*v, **lk_kw)
+
+    t_b1 = device_ms(lambda: L.lk_pyramid(pa, pb, P, init, **lk_kw))
+    t_s1 = device_ms(eight, launches=25)
+    t_s2 = device_ms(eight, launches=25)
+    t_b2 = device_ms(lambda: L.lk_pyramid(pa, pb, P, init, **lk_kw))
+    t_plain = device_ms(lambda: L.lk_pyramid_plain(pa, pb, P, init, **lk_kw), launches=1,
+                        warmup=1)
+    work = [lk_work(K, *v, t.lk_iters, t.lk_eps, lk_kw["forward_backward"], lk_kw["fb_iters"])
+            for v in views]
+    bnd = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    t_b = min(t_b1, t_b2)
+    print(f"multiseq: device time lk_pyramid batched (B={len(seqs)}): {t_b1 * 1e3:.3f}, "
+          f"{t_b2 * 1e3:.3f} us per launch; the same 8 calls as single launches {t_s1 * 1e3:.3f}, "
+          f"{t_s2 * 1e3:.3f} us; plain {t_plain:.3f} ms; bound {bnd[0] * 1e3:.3f} us by {bnd[1]} "
+          f"({bnd[2]}), {bnd[0] / t_b:.1%} of it reached [{card}]", flush=True)
+    return {"max_abs_err": worst, "ms": t_b, "plain_ms": t_plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
+def check_multiseq_steps(dev, seqs, cfg, card: str) -> None:
+    """A second Phase M run over MS_CHECK_FRAMES frames staged in advance:
+    host reads per step by kind under the sync-debug mode, replays against
+    the eager batched step (bit for bit), each sequence's batched step
+    against the single-sequence track_frame with the hoisted config (flags
+    equal, the tracks within the kernel-vs-plain tolerances, T_rk within
+    MS_TRK_TOL), and the device busy share of the steps after the warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereoslam_tpu_torch.core import frontend as F
+    from stereoslam_tpu_torch.core.graphs import _clone, _flat
+    from stereoslam_tpu_torch.parallel.multiseq import MultiSeqVO, OUTCOME_COLUMNS, _take
+
+    B = len(seqs)
+    vo = MultiSeqVO(cfg, batch=B, device=dev)
+    g = vo.graph
+    stack = lambda t, f: np.stack([getattr(q, f)[t] for q in seqs])  # noqa: E731
+    vo.initialize(stack(0, "left"), stack(0, "right"), np.zeros(B))
+    staged = [torch.from_numpy(np.stack([stack(t, "left"), stack(t, "right")], 1).astype(
+        np.uint8)).to(dev) for t in range(MS_CHECK_FRAMES)]
+    torch.cuda.synchronize()
+    col = {c: i for i, c in enumerate(OUTCOME_COLUMNS)}
+    single_col = {"num_inliers": 0, "num_tracked": 1, "status": 2, "make_kf": 3, "retry": 8,
+                  "deep": 9}  # frontend.track_frame's packed outcome
+    reads = {"plain": [], "keyframe": []}
+    replay_differ, seq_report, d_xy, agree = [], [], [], []
+    for t in range(1, MS_CHECK_FRAMES):
+        if t in MS_CHECK_STEPS:
+            # The step's replay, kept before keyframe service writes into
+            # its outputs, against the eager step and each sequence's
+            # single step on the same inputs; process_staged then replays
+            # the same inputs again.
+            with KeepCounters():
+                left, fs2, _, packed = replayed = _clone(
+                    g.run(staged[t], vo._pyr_prev, vo.fs, vo.maps))
+                g.replays -= 1
+                lr, pyr_prev, fs, tmap = g._inputs
+                eager = g._frame(lr, pyr_prev, fs, tmap)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(_flat(eager), _flat(replayed))):
+                    replay_differ.append(t)
+                for b in range(B):
+                    sfs, _, spk = F.track_frame(lr[b, 0].to(torch.float32),
+                                                tuple(p[b] for p in pyr_prev), _take(fs, b),
+                                                _take(tmap, b), vo.intr, vo._run_cfg)
+                    flags = all(float(packed[b, col[k]]) == float(spk[i]) for k, i in
+                                single_col.items())
+                    va, vb = fs2.tracks.valid[b], sfs.tracks.valid
+                    lk_same = torch.equal(fs2.tracks.xy[b], sfs.tracks.xy) and torch.equal(va, vb)
+                    d_xy.append((fs2.tracks.xy[b] - sfs.tracks.xy).norm(dim=-1)[va & vb])
+                    agree.append((va == vb).float().mean().item())
+                    d_trk = (fs2.T_rk[b] - sfs.T_rk).abs().max().item()
+                    seq_report.append((t, b, flags, lk_same, d_trk))
+        if t == MS_WARMUP:
+            break
+        before = (vo.outcome_reads, vo.detect_reads, vo.keyframes_serviced)
+        torch.cuda.synchronize()
+        with SyncCount() as sc:
+            vo.process_staged(staged[t], np.full(B, t * 0.1, np.float32))
+        outcome, detect = vo.outcome_reads - before[0], vo.detect_reads - before[1]
+        kind = "keyframe" if (vo.keyframes_serviced > before[2] or detect) else "plain"
+        if t >= 2:
+            reads[kind].append((sc.n, outcome, detect))
+
+    # The device busy share and the host stages of the steps after the
+    # warm-up, under the profiler.
+    vo.drain()
+    torch.cuda.synchronize()
+    n_stage = len(vo.stage_s["track"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(MS_WARMUP, MS_CHECK_FRAMES):
+            vo.process_staged(staged[t], np.full(B, t * 0.1, np.float32))
+        vo.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    lk = [e for e in kern if "lk_pyramid" in e.key]
+    n_steps = MS_CHECK_FRAMES - MS_WARMUP
+    stage = {k: np.asarray(v[n_stage:]) * 1e3 for k, v in vo.stage_s.items()}
+    print(f"multiseq: check run, {MS_CHECK_FRAMES} frames staged in advance: graph replay "
+          f"against the eager batched step at steps {MS_CHECK_STEPS}: "
+          f"{'bit-identical' if not replay_differ else f'DIFFER at {replay_differ}'}; "
+          f"{g.replays} replays for {MS_CHECK_FRAMES - 1} steps", flush=True)
+    print(f"multiseq: host wall ms a step by stage over the {n_steps} steps after the warm-up: "
+          + "; ".join(f"{k} mean {v.mean():.2f}, p50 {np.median(v):.2f}, max {v.max():.2f}"
+                      for k, v in stage.items()) + f" [{card}]", flush=True)
+    print(f"multiseq: the same {n_steps} steps under the profiler: wall {wall * 1e3:.1f} ms, "
+          f"device kernel time {dev_s * 1e3:.1f} ms, device busy {dev_s / wall:.1%}; "
+          f"{sum(e.count for e in kern)} kernel launches ({sum(e.count for e in kern) / n_steps:.0f} "
+          f"a step); lk_pyramid kernel {sum(e.self_device_time_total for e in lk) / 1e3:.2f} ms in "
+          f"{sum(e.count for e in lk)} launches [{card}]", flush=True)
+    bad = [r for r in seq_report if not (r[2] and r[4] <= MS_TRK_TOL)]
+    d = torch.cat(d_xy)
+    med, p99 = d.median().item(), d.quantile(0.99).item()
+    trk = sorted(r[4] for r in seq_report)
+    print(f"multiseq: each sequence's batched step against track_frame (hoisted config) at "
+          f"steps {MS_CHECK_STEPS}, {len(seq_report)} cases: flags equal in "
+          f"{sum(r[2] for r in seq_report)}; tracks bit for bit in {sum(r[3] for r in seq_report)}, "
+          f"valid agreement min {min(agree):.4f}, |d xy| median {med:.2e} p99 {p99:.2e} max "
+          f"{d.max().item():.2e} px; |d T_rk| median {trk[len(trk) // 2]:.2e} max {trk[-1]:.2e} "
+          f"(bound {MS_TRK_TOL}); failing (step, seq, flags equal, tracks bit for bit, |d T_rk|): "
+          f"{bad}", flush=True)
+    for kind, v in reads.items():
+        if v:
+            a = np.asarray(v)
+            print(f"multiseq: host reads per {kind} step (lag {vo.readback_lag}): sync-debug "
+                  f"reports {a[:, 0].mean():.2f} (max {a[:, 0].max()}), outcome reads "
+                  f"{a[:, 1].mean():.2f}, detection reads {a[:, 2].mean():.2f}, over {len(v)} "
+                  f"steps", flush=True)
+    if replay_differ:
+        fail("multiseq", "replay vs eager", f"graph replay differs from the eager batched step at "
+             f"steps {replay_differ}")
+    if g.replays != MS_CHECK_FRAMES - 1:
+        fail("multiseq", "graph", f"{g.replays} replays for {MS_CHECK_FRAMES - 1} steps")
+    if bad or not (min(agree) >= TOL_GOOD_AGREE and med < TOL_MEDIAN_PX and p99 < TOL_P99_PX):
+        fail("multiseq", "batched vs single step", f"(step, seq, flags equal, tracks bit for bit, "
+             f"|d T_rk|) {bad}; valid agreement {min(agree):.4f}, |d xy| median {med:.2e} p99 "
+             f"{p99:.2e} px")
+    plain = np.asarray(reads["plain"])
+    if len(plain) == 0 or not ((plain[:, 0] == 0).all() and (plain[:, 1] == 1).all()
+                               and (plain[:, 2] == 0).all()):
+        fail("multiseq", "syncs", f"a keyframe-free step made other than one device-to-host "
+             f"read: (sync-debug reports, outcome reads, detection reads) {reads['plain']}")
+
+    # The last step, copy-in and replay, as the batched graph against each
+    # sequence's slice of the same inputs through a single-sequence graph
+    # (StereoSlam's TrackGraph): CUDA events around back-to-back calls, in
+    # turns (batched, single, single, batched).
+    from stereoslam_tpu_torch.core.graphs import TrackGraph
+
+    lr, pyr_prev, fs, tmap = inputs = _clone(g._inputs)
+    single = TrackGraph(vo._run_cfg, vo.intr, dev)
+    slices = [(lr[b], tuple(p[b] for p in pyr_prev), _take(fs, b), _take(tmap, b))
+              for b in range(B)]
+
+    def replays(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MS_REPLAYS):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / MS_REPLAYS
+
+    def all_singles():
+        for sl in slices:
+            single.run(*sl)
+
+    def batched():
+        g.run(*inputs)
+
+    with KeepCounters():
+        t_rep = [replays(batched), replays(all_singles), replays(all_singles), replays(batched)]
+    print(f"multiseq: one tracked step of the last inputs, copy-in and replay: the batched graph "
+          f"{t_rep[0]:.3f}, {t_rep[3]:.3f} ms for {B} sequences; the single-sequence graph "
+          f"(StereoSlam's) on each of the {B} slices {t_rep[1]:.3f}, {t_rep[2]:.3f} ms (CUDA "
+          f"events, {MS_REPLAYS} back to back) [{card}]", flush=True)
+
+
+def check_multiseq_world(dev, ms, card: str) -> None:
+    """(c) The MULTISEQ_LOOP.json experiment (``ms``, the loaded
+    scripts/torch_multiseq_world.py): B=2 world circuits (seeds 1 and 2,
+    548 frames) loop ON (verify_loops=True, kf_sub=2) and OFF."""
+    from stereoslam_tpu_torch.parallel import multiseq as M
+
+    lines = LogLines()
+    ms_log = logging.getLogger(M.__name__)
+    ms_log.addHandler(lines)
+    ms_log.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rec, vo_on, vo_off, seqs = ms.experiment(MS_WORLD_BATCH, WORLD_FRAMES, dev)
+    finally:
+        ms_log.removeHandler(lines)
+        ms_log.setLevel(logging.NOTSET)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path = Path(__file__).resolve().parent / "MULTISEQ_LOOP.json"
+    tpu = json.loads(path.read_text()) if path.exists() else None
+    print(f"multiseq: world record {json.dumps(rec)} ({wall:.1f} s for rendering and both "
+          f"runs) [{card}]", flush=True)
+    for b, r in enumerate(rec["per_seq"]):
+        jr = tpu["per_seq"][b] if tpu and b < len(tpu["per_seq"]) else None
+        jtxt = (f"; TPU record (MULTISEQ_LOOP.json, the JAX package): ATE ON {jr['ate_loop_on_m']}"
+                f" m, OFF {jr['ate_loop_off_m']} m, {jr['n_kf']} KFs, {len(jr['detected_edges'])}"
+                f" edges, {len(jr['applied_corrections'])} applied" if jr else "")
+        print(f"multiseq: world seed {r['seed']}: ATE loop ON {r['ate_loop_on_m']} m, OFF "
+              f"{r['ate_loop_off_m']} m, {r['n_kf']} KFs, edges {r['detected_edges']}, applied "
+              f"corrections {r['applied_corrections']}{jtxt}", flush=True)
+        if not r["applied_corrections"]:
+            print(f"multiseq: world seed {r['seed']}: no applied correction (queue 3)", flush=True)
+        summarize_refusals([x for x in lines.lines if x.startswith(f"seq {b}:")],
+                           vo_on._vcfg.loop, card, prefix=f"multiseq: world seed {r['seed']}")
+    id_gap = vo_on.cfg.loop.id_gap
+    for name, vo in (("loop ON", vo_on), ("loop OFF", vo_off)):
+        if not vo.alive.all():
+            fail("multiseq", "world LOST", f"{name}: sequences lost {np.nonzero(~vo.alive)[0]}")
+    for b, r in enumerate(rec["per_seq"]):
+        fid = vo_on.maps.kf_frame_id[b].cpu().numpy()
+        pos = np.linalg.inv(np.asarray(seqs[b].T_cw).astype(np.float64))[:, :3, 3]
+        for kind in ("detected_edges", "applied_corrections"):
+            for kf, lp in r[kind]:
+                dist = float(np.linalg.norm(pos[fid[kf]] - pos[fid[lp]]))
+                if kf - lp < id_gap or not dist < WORLD_MAX_EDGE_GT_M:
+                    fail("multiseq", "world edges", f"seed {r['seed']}: {kind} {kf}->{lp} has id "
+                         f"gap {kf - lp} or ground-truth distance {dist:.2f} m")
+        if not r["ate_loop_on_m"] <= r["ate_loop_off_m"] + MS_ATE_SLACK_M:
+            fail("multiseq", "world ATE", f"seed {r['seed']}: ATE loop ON {r['ate_loop_on_m']} m "
+                 f"above loop OFF {r['ate_loop_off_m']} m")
+
+
+def phase_multiseq(dev, card: str):
+    """The batched multi-sequence mode: (a) the batched LK launch, (b) bench.py
+    Phase M's workload through MultiSeqVO fed by BatchFeed, with the checking
+    run, and (c) the MULTISEQ_LOOP.json experiment."""
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.parallel.multiseq import MultiSeqVO
+    from stereoslam_tpu_torch.utils.feed import BatchFeed
+
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        t_part.append(time.perf_counter())
+        print(f"multiseq: {name} took {t_part[-1] - t_part[-2]:.1f} s", flush=True)
+
+    seqs = multiseq_sequences()
+    cfg = multiseq_config()
+    numbers = check_batched_kernel(dev, seqs, cfg, card)
+    part("(a), the batched kernel")
+
+    # (b) Phase M: warm-up through process_frames, then BatchFeed.
+    B = MS_BATCH
+    stack = lambda t, f: np.stack([getattr(q, f)[t] for q in seqs])  # noqa: E731
+    vo = MultiSeqVO(cfg, batch=B, device=dev)
+    vo.initialize(stack(0, "left"), stack(0, "right"), np.zeros(B))
+    reset_counters()
+    per_step, step_ms = [], []
+    for t in range(1, MS_WARMUP):
+        k0 = vo.keyframes_serviced
+        vo.process_frames(stack(t, "left"), stack(t, "right"), np.full(B, t * 0.1))
+        per_step.append(vo.keyframes_serviced - k0)
+    vo.drain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feed = BatchFeed(((stack(t, "left"), stack(t, "right"), np.full(B, t * 0.1))
+                      for t in range(MS_WARMUP, MS_FRAMES)), device=dev)
+    for lr, ts in feed:
+        k0, s0 = vo.keyframes_serviced, time.perf_counter()
+        vo.process_staged(lr, ts)
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        per_step.append(vo.keyframes_serviced - k0)
+    vo.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"lk_pyramid": L.lk_pyramid.launches,
+                "lk_pyramid_batched": L.lk_pyramid.batched_launches}
+    steps = MS_FRAMES - 1
+    fps = B * (MS_FRAMES - MS_WARMUP) / wall
+    n_kf = vo.maps.n_kf.cpu().numpy()
+    ms = multiseq_world_script()
+    ate = [round(ms.kf_ate(vo, b, seqs[b]), 4) for b in range(B)]
+    run = tuple((int(n_kf[b]), ate[b]) for b in range(B))
+    print(f"multiseq: Phase M, B={B} x {MS_FRAMES} frames 240x376: {fps:.2f} aggregate FPS, "
+          f"{fps * 240 * 376 / 1e6:.2f} Mpx/s after {MS_WARMUP} warm-up frames (BatchFeed), p50 "
+          f"step {np.median(step_ms):.2f} ms (host, process_staged), {vo.graph.replays} graph "
+          f"replays for {steps} steps, {vo.keyframes_serviced} keyframes serviced (at most "
+          f"{max(per_step)} a step, kf_sub {vo.kf_sub}), lk_pyramid launches {launches} "
+          f"[{card}]", flush=True)
+    print(f"multiseq: Phase M per sequence (KFs, keyframe ATE m): {run}; alive {vo.alive.tolist()}",
+          flush=True)
+    if not vo.alive.all():
+        fail("multiseq", "LOST", f"sequences lost: {np.nonzero(~vo.alive)[0].tolist()}")
+    if (n_kf < MS_MIN_KF).any():
+        fail("multiseq", "keyframes", f"fewer than {MS_MIN_KF} keyframes: {n_kf.tolist()}")
+    if max(per_step) > vo.kf_sub:
+        fail("multiseq", "kf_sub", f"{max(per_step)} keyframes in one step, kf_sub {vo.kf_sub}")
+    if vo.graph.replays != steps:
+        fail("multiseq", "graph", f"{vo.graph.replays} graph replays for {steps} steps")
+    if launches["lk_pyramid_batched"] < steps:
+        fail("multiseq", "launches", f"the batched step bypassed the batched LK launch: {launches}")
+    if EXPECTED_MULTISEQ_RUN is not None and run != EXPECTED_MULTISEQ_RUN:
+        fail("multiseq", "repeat", f"(KFs, ATE) per sequence = {run}, expected "
+             f"{EXPECTED_MULTISEQ_RUN}: the run repeats bit for bit, so the arithmetic changed")
+    part("(b), Phase M")
+    check_multiseq_steps(dev, seqs, cfg, card)
+    part("(b), the check run")
+    check_multiseq_world(dev, ms, card)
+    part("(c), the world circuits")
+    return numbers, launches["lk_pyramid_batched"]
+
+
 def phase_profile(dev, seq, n_frames: int, card: str) -> None:
     """Device busy share and the top CUDA kernels over frames
     [WARMUP, WARMUP + n_frames) of a second run of the main path."""
@@ -1600,16 +2101,20 @@ def main() -> None:
     run_phase("loop", phase_loop, dev, card)
     worst_world = run_phase("world", phase_world, dev, card)
     numbers["lk_pyramid"]["max_abs_err"] = max(numbers["lk_pyramid"]["max_abs_err"], worst_world)
+    numbers["lk_pyramid_batched"], launches["lk_pyramid_batched"] = run_phase(
+        "multiseq", phase_multiseq, dev, card)
     if args.profile:
         run_phase("profile", phase_profile, dev, seq, min(args.profile, len(seq.left) - WARMUP),
                   card)
 
     kernels = [
         {"name": name, "route": "cuda", "source": "stereoslam_tpu_torch/csrc/lk_level.cu",
-         "replaces": replaces, "launches": launches[name], **numbers[name]}
+         "replaces": replaces,
+         "launches": launches[name], **numbers[name]}
         for name, replaces in (("lk_pyramid", "stereoslam_tpu/ops/lk_pallas.py:185"),
                                ("lk_level", "stereoslam_tpu/ops/lk_pallas.py:185"),
-                               ("lk_final_error", "stereoslam_tpu/ops/lk_batched.py:137"))
+                               ("lk_final_error", "stereoslam_tpu/ops/lk_batched.py:137"),
+                               ("lk_pyramid_batched", "stereoslam_tpu/ops/lk_pallas.py:185"))
     ]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

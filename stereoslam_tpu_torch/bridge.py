@@ -3,7 +3,10 @@
 The parity tests seed a torch step from exactly the state a JAX step saw:
 ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}`` goes in, a
 torch container comes out on the ``device`` the caller names, and the
-``*_to_numpy`` inverses go back.  Keys are the JAX package's field names; a
+``*_to_numpy`` inverses go back.  Batched states (the multi-sequence mode:
+every field with a leading B) load through the same functions;
+:func:`stack_numpy` and :func:`unstack_numpy` build and split them per
+sequence.  Keys are the JAX package's field names; a
 ``FrontendState``'s ``tracks`` entry is itself such a dict (or the JAX
 ``TrackState``).  The JAX package's uint32 descriptor words become the
 port's int32 words by reinterpreting their bits (``.view``), never by a
@@ -85,6 +88,47 @@ def calc_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out["proj.weight"] = torch.from_numpy(
         np.ascontiguousarray(np.asarray(p["proj"]["kernel"], np.float32).T))
     return out
+
+
+def stack_numpy(trees: Sequence[Any]) -> Dict[str, Any]:
+    """Per-sequence states (NamedTuples or nested dicts of arrays, one per
+    sequence) -> one batched nested dict, each leaf stacked on a new
+    leading dim.  The ``*_from_numpy`` loaders take it as it is: every
+    field then carries the batch dim of the batched multi-sequence mode."""
+    first = _fields(trees[0])
+    return {k: (stack_numpy([_fields(t)[k] for t in trees])
+                if hasattr(first[k], "_asdict") or isinstance(first[k], Mapping)
+                else np.stack([np.asarray(_fields(t)[k]) for t in trees]))
+            for k in first}
+
+
+def unstack_numpy(tree: Any, b: int) -> Dict[str, Any]:
+    """Sequence ``b`` of a batched state (NamedTuple or nested dict, numpy,
+    JAX or torch leaves) as a nested dict of numpy arrays."""
+    out = {}
+    for k, v in _fields(tree).items():
+        if v is None:
+            out[k] = None
+        elif hasattr(v, "_asdict") or isinstance(v, Mapping):
+            out[k] = unstack_numpy(v, b)
+        else:
+            out[k] = (v[b].cpu().numpy() if isinstance(v, torch.Tensor) else np.array(v[b]))
+    return out
+
+
+def batch_loop_db_from_numpy(d: Mapping[str, Any], device):
+    """A JAX ``BatchLoopDB`` (or its numpy dict) -> the port's; the uint32
+    ORB words become int32 with the same bits; absent store fields stay None."""
+    from stereoslam_tpu_torch.parallel.multiseq import BatchLoopDB
+
+    d = _fields(d)
+    return BatchLoopDB(**{k: None if d.get(k) is None else _tensor(d[k], device)
+                          for k in BatchLoopDB._fields})
+
+
+def batch_loop_db_to_numpy(ldb) -> Dict[str, Any]:
+    """``orb_desc`` comes back as the port's int32 words."""
+    return {k: None if v is None else v.cpu().numpy() for k, v in ldb._asdict().items()}
 
 
 def pyramid_from_numpy(levels: Sequence[Any], device) -> Tuple[torch.Tensor, ...]:

@@ -1,5 +1,6 @@
-"""One CUDA graph of the tracked frame per ``StereoSlam``: the port's
-counterpart of the JAX package's jitted frame program.
+"""One CUDA graph of the tracked frame per ``StereoSlam`` (and of the
+batched tracked step per ``MultiSeqVO``): the port's counterpart of the JAX
+package's jitted frame program.
 
 :func:`~stereoslam_tpu_torch.core.frontend.track_frame` (the pyramid, LK
 with its gated rescue passes, the pose LM, the status and the branch flags)
@@ -46,11 +47,20 @@ number of launches the card ran.
 buffers, calls ``track_frame`` on them and copies the results into static
 outputs, without a graph, so the CPU tests run the copy-in and copy-out
 plumbing and the aliasing rules above.
+
+**Another frame function.**  ``frame_fn`` replaces ``track_frame`` with any
+function of the same inputs (the stereo pair, the previous pyramid, the
+frontend state, the ``TrackMap``) that reads nothing back: the batched
+multi-sequence mode passes its tracked step over B sequences
+(``parallel/multiseq.py``), whose inputs carry a leading B and whose
+copy-in is reckoned there.  Capture, copy-in and launch counts are the
+same.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from functools import partial
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -86,31 +96,33 @@ def _copy_into(dst, src) -> None:
 
 
 def _kernel_counters():
-    """The kernel wrappers whose ``launches`` the tracked frame can move."""
+    """The kernel wrappers' counters that the tracked frame can move, as
+    (wrapper, attribute) pairs."""
     from stereoslam_tpu_torch.ops import lk, lk_level
 
-    return (lk.lk_pyramid, lk_level.lk_level, lk_level.lk_final_error)
+    return ((lk.lk_pyramid, "launches"), (lk.lk_pyramid, "batched_launches"),
+            (lk_level.lk_level, "launches"), (lk_level.lk_final_error, "launches"))
+
+
+def _single_frame(cfg: SlamConfig, intr: Intrinsics, lr_u8, pyr_prev, fs, track_map):
+    left = lr_u8[0].to(torch.float32)
+    fs2, pyr, packed = frontend_mod.track_frame(left, pyr_prev, fs, track_map, intr, cfg)
+    return left, fs2, pyr, packed
 
 
 class TrackGraph:
-    """Runs ``track_frame`` as one replayed CUDA graph (on the CPU: on the
-    same static buffers, without a graph)."""
+    """Runs ``track_frame`` (or ``frame_fn``) as one replayed CUDA graph (on
+    the CPU: on the same static buffers, without a graph)."""
 
-    def __init__(self, cfg: SlamConfig, intr_left: Intrinsics, device):
-        self.cfg = cfg
-        self.intr = intr_left
+    def __init__(self, cfg: SlamConfig, intr_left: Intrinsics, device,
+                 frame_fn: Optional[Callable] = None):
         self.device = torch.device(device)
+        self._frame = frame_fn or partial(_single_frame, cfg, intr_left)
         self.graph = None
         self._inputs = None
         self._outputs = None
         self._launch_deltas: Tuple[int, ...] = ()
         self.replays = 0
-
-    def _frame(self, lr_u8, pyr_prev, fs, track_map):
-        left = lr_u8[0].to(torch.float32)
-        fs2, pyr, packed = frontend_mod.track_frame(left, pyr_prev, fs, track_map, self.intr,
-                                                    self.cfg)
-        return left, fs2, pyr, packed
 
     def run(self, lr_u8: torch.Tensor, pyr_prev, fs: FrontendState, map_state
             ) -> Tuple[torch.Tensor, FrontendState, Tuple[torch.Tensor, ...], torch.Tensor]:
@@ -133,8 +145,8 @@ class TrackGraph:
             self._capture()
         self.graph.replay()
         self.replays += 1
-        for counter, delta in zip(_kernel_counters(), self._launch_deltas):
-            counter.launches += delta
+        for (fn, attr), delta in zip(_kernel_counters(), self._launch_deltas):
+            setattr(fn, attr, getattr(fn, attr) + delta)
         return self._outputs
 
     def _capture(self) -> None:
@@ -145,11 +157,11 @@ class TrackGraph:
         with torch.cuda.stream(side):
             self._frame(*self._inputs)  # warm-up: the eager frame, results discarded
         stream.wait_stream(side)
-        warm = [c.launches for c in counters]
+        warm = [getattr(fn, attr) for fn, attr in counters]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._outputs = self._frame(*self._inputs)
-        self._launch_deltas = tuple(c.launches - w for c, w in zip(counters, warm))
-        for c, w in zip(counters, warm):
-            c.launches = w
+        self._launch_deltas = tuple(getattr(fn, attr) - w for (fn, attr), w in zip(counters, warm))
+        for (fn, attr), w in zip(counters, warm):
+            setattr(fn, attr, w)
         self.graph = graph

@@ -11,11 +11,18 @@
 // the edge.
 //
 // Entry points, all on the same device code:
-//   lk_pyramid_launch      one whole pyramidal-LK call (ops/lk.py
-//                          pyramidal_lk): every level coarse to fine, the
+//   lk_pyramid_launch      B whole pyramidal-LK calls of one shape (ops/lk.py
+//                          pyramidal_lk; B = 1 for a single call, B > 1 for
+//                          the sequences of a batch, the JAX package's vmap
+//                          of the call): every level coarse to fine, the
 //                          final error, the status, and with forward_backward
 //                          > 0 the backward pass and the round-trip test;
-//                          optionally gated by a device flag;
+//                          optionally gated by a device flag a sequence.
+//                          The grid's second dimension is the sequence, each
+//                          level a contiguous (B, H, W) stack, the points
+//                          (B, N, 2).  A sequence's result is that of its own
+//                          single launch, bit for bit: the per-feature code
+//                          is the same and reads only its sequence's slices;
 //   lk_level_launch        one level, no fusion;
 //   lk_final_error_launch  the mean |J - T| over the window at a given flow.
 // The main path launches only lk_pyramid; the per-level entries exist to hold
@@ -297,19 +304,27 @@ __device__ __forceinline__ float final_error(const Ctx& c, const Level& L, float
   return warp_sum(acc) / static_cast<float>(kSamples);
 }
 
+// Sequence `seq`'s image at level `lvl` of a pyramid whose levels are
+// contiguous (B, H, W) stacks (B = 1 for a single call).
+__device__ __forceinline__ const float* level_image(const Pyramid& p, int lvl, int seq) {
+  return p.img[lvl] + static_cast<size_t>(seq) * p.h[lvl] * p.w[lvl];
+}
+
 // One pyramidal-LK pass (ops/lk.py lk_pyramid without forward-backward):
-// track (px, py) from pyramid a to pyramid b seeded at (ix, iy).
+// track (px, py) from pyramid a to pyramid b seeded at (ix, iy), in
+// sequence `seq` of the pyramids' stacks.
 __device__ __forceinline__ void pyramid_pass(const Ctx& c, const Pyramid& a, const Pyramid& b,
-                                             int n_levels, float px, float py, float ix, float iy,
-                                             const Pass& p, float& qx, float& qy, bool& status,
-                                             float& err) {
+                                             int seq, int n_levels, float px, float py, float ix,
+                                             float iy, const Pass& p, float& qx, float& qy,
+                                             bool& status, float& err) {
   const float top = static_cast<float>(1 << (n_levels - 1));
   float flx = (ix - px) / top, fly = (iy - py) / top;
   Level L;
   for (int lvl = n_levels - 1; lvl >= 0; --lvl) {
     const float scale = static_cast<float>(1 << lvl);
     const float lx = px / scale, ly = py / scale;
-    begin_level(c, L, a.img[lvl], b.img[lvl], a.h[lvl], a.w[lvl], lx, ly, flx, fly, p.min_eig);
+    begin_level(c, L, level_image(a, lvl, seq), level_image(b, lvl, seq), a.h[lvl], a.w[lvl],
+                lx, ly, flx, fly, p.min_eig);
     iterate(c, L, lx, ly, flx, fly, p.iters, p.eps2);
     if (lvl > 0) {
       flx *= 2.0f;
@@ -337,6 +352,7 @@ __device__ __forceinline__ bool make_ctx(Ctx& c, int& f, int N) {
   return f < N;  // uniform over the warp: its lanes leave together
 }
 
+// blockIdx.y is the sequence; every pointer below is moved to its slice.
 __global__ void lk_pyramid_kernel(Pyramid a, Pyramid b, int n_levels, int fb_levels,
                                   const float* __restrict__ pts_prev,
                                   const float* __restrict__ pts_init, int N, Pass fwd, Pass bwd,
@@ -346,7 +362,13 @@ __global__ void lk_pyramid_kernel(Pyramid a, Pyramid b, int n_levels, int fb_lev
   Ctx c;
   int f;
   if (!make_ctx(c, f, N)) return;
-  if (gate != nullptr && *gate == 0) {
+  const int seq = blockIdx.y;
+  pts_prev += static_cast<size_t>(seq) * 2 * N;
+  pts_init += static_cast<size_t>(seq) * 2 * N;
+  pts_out += static_cast<size_t>(seq) * 2 * N;
+  status_out += static_cast<size_t>(seq) * N;
+  err_out += static_cast<size_t>(seq) * N;
+  if (gate != nullptr && gate[seq] == 0) {
     // Gated off: the call keeps no track (points at their seeds, error 0).
     if (c.lane == 0) {
       pts_out[2 * f] = pts_init[2 * f];
@@ -359,14 +381,14 @@ __global__ void lk_pyramid_kernel(Pyramid a, Pyramid b, int n_levels, int fb_lev
   const float px = pts_prev[2 * f], py = pts_prev[2 * f + 1];
   float qx, qy, err;
   bool status;
-  pyramid_pass(c, a, b, n_levels, px, py, pts_init[2 * f], pts_init[2 * f + 1], fwd, qx, qy,
-               status, err);
+  pyramid_pass(c, a, b, seq, n_levels, px, py, pts_init[2 * f], pts_init[2 * f + 1], fwd, qx,
+               qy, status, err);
   if (fb_threshold > 0.0f) {
     // Re-track back from (qx, qy) at zero flow over the finest fb_levels.
     const int nb = fb_levels > 0 ? min(fb_levels, n_levels) : n_levels;
     float rx, ry, err_back;
     bool status_back;
-    pyramid_pass(c, b, a, nb, qx, qy, qx, qy, bwd, rx, ry, status_back, err_back);
+    pyramid_pass(c, b, a, seq, nb, qx, qy, qx, qy, bwd, rx, ry, status_back, err_back);
     const float dx = rx - px, dy = ry - py;
     status = status && status_back && sqrtf(dx * dx + dy * dy) <= fb_threshold;
   }
@@ -430,18 +452,21 @@ bool launch_shape(int N, int smem_bytes_per_feature, dim3& grid, dim3& block, si
 // returns a CUDA error code (cudaGetLastError() after the launch) so the
 // caller can raise on a refused launch.  `smem_bytes_per_feature` is the
 // caller's size of the staged windows; a mismatch is refused.  `gate`, where
-// not null, points to one byte on the device that the kernel reads first:
-// 0 makes the call keep no track (status 0, points at pts_init, error 0)
-// without touching the images, so a host-free caller can launch a
-// conditional call unconditionally; null or nonzero runs the call as is.
+// not null, points to one byte on the device (one a sequence for a batched
+// launch) that the kernel reads first: 0 makes the call keep no track
+// (status 0, points at pts_init, error 0) without touching the images, so a
+// host-free caller can launch a conditional call unconditionally; null or
+// nonzero runs the call as is.
 extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* next, const int* hs,
                                  const int* ws, int n_levels, int fb_levels, const float* pts_prev,
-                                 const float* pts_init, int N, int iters, int fb_iters, float eps2,
-                                 float min_eig, float max_error, float fb_threshold,
+                                 const float* pts_init, int B, int N, int iters, int fb_iters,
+                                 float eps2, float min_eig, float max_error, float fb_threshold,
                                  const uint8_t* gate, float* pts_out, uint8_t* status_out,
                                  float* err_out, int smem_bytes_per_feature, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
-  if (N <= 0) return 0;
+  if (n_levels < 1 || n_levels > kMaxLevels || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N <= 0 || B <= 0) return 0;
   Pyramid a{}, b{};
   for (int l = 0; l < n_levels; ++l) {
     a.img[l] = static_cast<const float*>(prev[l]);
@@ -456,6 +481,7 @@ extern "C" int lk_pyramid_launch(const void* const* prev, const void* const* nex
   if (!launch_shape(N, smem_bytes_per_feature, grid, block, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  grid.y = B;
   lk_pyramid_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       a, b, n_levels, fb_levels, pts_prev, pts_init, N, fwd, bwd, fb_threshold, gate, pts_out,
       status_out, err_out);

@@ -110,13 +110,15 @@ def patch_at(img: torch.Tensor, centers_xy: torch.Tensor, radius: int) -> torch.
 
 def halve(img: torch.Tensor) -> torch.Tensor:
     """2x downsample by 2x2 averaging (the classic LK pyramid reduction);
-    an odd last row/column is dropped."""
-    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
-    return img[: h2 * 2, : w2 * 2].reshape(h2, 2, w2, 2).sum(dim=(1, 3)) * 0.25
+    an odd last row/column is dropped.  Leading dims are a batch."""
+    lead = img.shape[:-2]
+    h2, w2 = img.shape[-2] // 2, img.shape[-1] // 2
+    return img[..., : h2 * 2, : w2 * 2].reshape(lead + (h2, 2, w2, 2)).sum(dim=(-3, -1)) * 0.25
 
 
 def build_lk_pyramid(img: torch.Tensor, n_levels: int) -> Tuple[torch.Tensor, ...]:
-    """Power-of-two pyramid for pyramidal LK (cv::buildOpticalFlowPyramid)."""
+    """Power-of-two pyramid for pyramidal LK (cv::buildOpticalFlowPyramid);
+    leading dims of ``img`` are a batch."""
     levels = [img]
     for _ in range(1, n_levels):
         levels.append(halve(levels[-1]))

@@ -226,8 +226,8 @@ def build_library() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_pyramid_launch.argtypes = [p, p, p, p, i, i, p, p, i, i, i, f, f, f, f, p, p, p, p,
-                                      i, p]
+    lib.lk_pyramid_launch.argtypes = [p, p, p, p, i, i, p, p, i, i, i, i, f, f, f, f, p, p, p,
+                                      p, i, p]
     lib.lk_level_launch.argtypes = [p, p, i, i, p, p, p, p, i, i, f, f, i, p]
     lib.lk_final_error_launch.argtypes = [p, p, i, i, p, p, p, i, i, p]
     for fn in (lib.lk_pyramid_launch, lib.lk_level_launch, lib.lk_final_error_launch,

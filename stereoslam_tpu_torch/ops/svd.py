@@ -14,7 +14,10 @@ sweeps, so the re-solve that is left out does not arise for the rotation
 blocks this serves.
 
 On CPU tensors, other dtypes and larger matrices :func:`svd` is
-``torch.linalg.svd`` itself.  cuSOLVER is the library PyTorch loaded; it is
+``torch.linalg.svd`` itself.  The cuSOLVER call is the custom op
+``stereoslam::svd_small``, whose batching rule hands ``torch.func.vmap``'s
+dimension to the routine's own batch (the batched multi-sequence mode
+vmaps the tracked step over its sequences).  cuSOLVER is the library PyTorch loaded; it is
 bound with ctypes at the first CUDA call, never at import.  That first call
 must not be inside a capture (a warm-up call makes it): it creates the
 cuSOLVER handle.
@@ -27,6 +30,7 @@ import functools
 from typing import Tuple
 
 import torch
+from torch import Tensor
 
 _FLOAT32_EPS = float(torch.finfo(torch.float32).eps)
 _MAX_SIDE = 32          # gesvdjBatched's limit on m and n
@@ -81,6 +85,23 @@ def svd(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     m, n = A.shape[-2:]
     if A.device.type != "cuda" or A.dtype != torch.float32 or max(m, n) > _MAX_SIDE:
         return torch.linalg.svd(A)
+    return _svd_op(A)
+
+
+@torch.library.custom_op("stereoslam::svd_small", mutates_args=())
+def _svd_op(A: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    return _gesvdj_batched(A)
+
+
+@_svd_op.register_vmap
+def _svd_vmap(info, in_dims, A):
+    return _gesvdj_batched(A.movedim(in_dims[0], 0)), (0, 0, 0)
+
+
+def _gesvdj_batched(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """cuSOLVER's ``gesvdjBatched`` over the leading dims of a float32 CUDA
+    (..., m, n), on the current stream."""
+    m, n = A.shape[-2:]
     lib, params = _library()
     batch = A.shape[:-2]
     a = A.reshape(-1, m, n).transpose(-1, -2).contiguous()  # column-major, as cuSOLVER reads it

@@ -1,5 +1,5 @@
 """Device input feed: stage stereo pairs onto the card ahead of use (port of
-``stereoslam_tpu/utils/feed.py`` ``DeviceFeed``).
+``stereoslam_tpu/utils/feed.py`` ``DeviceFeed`` and ``BatchFeed``).
 
 A background thread stacks frame t+1..t+depth into pinned host buffers and
 copies each one to the card with a non-blocking copy on a side CUDA stream,
@@ -34,8 +34,6 @@ import torch
 _SENTINEL = object()
 
 
-def _stack_u8(left, right) -> np.ndarray:
-    return np.stack([np.asarray(left), np.asarray(right)]).astype(np.uint8)
 
 
 class DeviceFeed:
@@ -65,6 +63,12 @@ class DeviceFeed:
         self._thread = threading.Thread(target=self._run, args=(iter(frames),), daemon=True)
         self._thread.start()
 
+    @staticmethod
+    def _host(item):
+        """(the uint8 stack to stage, its timestamp) of one host item."""
+        left, right, ts = item
+        return np.stack([np.asarray(left), np.asarray(right)]).astype(np.uint8), float(ts)
+
     def _run(self, it) -> None:
         try:
             with torch.cuda.device(self.device):
@@ -72,10 +76,10 @@ class DeviceFeed:
                 # depth items may sit in the queue and one more with the
                 # consumer; one more is being filled.
                 slots = [None] * (self._depth + 2)
-                for k, (left, right, ts) in enumerate(it):
+                for k, item in enumerate(it):
                     if self._stop.is_set():
                         return
-                    lr = _stack_u8(left, right)
+                    lr, ts = self._host(item)
                     slot = slots[k % len(slots)]
                     if slot is None or slot[0].shape != lr.shape:
                         slot = [torch.empty(lr.shape, dtype=torch.uint8, pin_memory=True), None]
@@ -88,7 +92,7 @@ class DeviceFeed:
                         done = torch.cuda.Event()
                         done.record(stream)
                     slot[1] = done
-                    self._put((dev, float(ts), done))
+                    self._put((dev, ts, done))
         except BaseException as e:  # surfaced on the consumer side
             self._err = e
         finally:
@@ -121,8 +125,9 @@ class DeviceFeed:
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, float]]:
         if self.device.type != "cuda":
-            for left, right, ts in self._frames:
-                yield torch.from_numpy(_stack_u8(left, right)), float(ts)
+            for item in self._frames:
+                lr, ts = self._host(item)
+                yield torch.from_numpy(lr), ts
             return
         try:
             while True:
@@ -140,3 +145,24 @@ class DeviceFeed:
             # Runs on normal exhaustion AND when the consumer abandons the
             # generator (break / exception).
             self.close()
+
+
+class BatchFeed(DeviceFeed):
+    """Staging feed of the batched multi-sequence mode
+    (:class:`~stereoslam_tpu_torch.parallel.multiseq.MultiSeqVO`): iterates
+    ``(stack, ts)`` where ``stack`` is ONE (B, 2, H, W) uint8 tensor on the
+    device a step and ``ts`` a float32 (B,) numpy vector, staged and
+    delivered exactly as :class:`DeviceFeed` stages a pair (pinned buffers,
+    non-blocking copies on a side stream, the same lifecycle).
+
+    Args:
+      frames: iterable of ``(left_B, right_B, ts_B)`` host batches: (B, H, W)
+        images and B timestamps.
+      depth, device: as for :class:`DeviceFeed`.
+    """
+
+    @staticmethod
+    def _host(item):
+        left, right, ts = item
+        lr = np.stack([np.asarray(left), np.asarray(right)], axis=1).astype(np.uint8)
+        return lr, np.asarray(ts, np.float32)

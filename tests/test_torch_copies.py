@@ -210,7 +210,7 @@ def test_port_imports_without_jax():
         "import stereoslam_tpu_torch.utils.feed, stereoslam_tpu_torch.utils.checkpoint\n"
         "import stereoslam_tpu_torch.run, stereoslam_tpu_torch.utils.kitti\n"
         "import stereoslam_tpu_torch.utils.prof, stereoslam_tpu_torch.utils.viewer\n"
-        "import stereoslam_tpu_torch.native.dataloader\n"
+        "import stereoslam_tpu_torch.native.dataloader, stereoslam_tpu_torch.parallel.multiseq\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )

@@ -23,7 +23,10 @@ card is held to the CPU by the CPU tests' tolerances against JAX (median
 checkpoint round trip must be exact.  A replay of the tracked frame's graph
 runs the same kernels on the same inputs as the eager frame, so it equals
 it bit for bit; the eager frame makes no host sync; ``lk_pyramid`` gated on
-equals the ungated call bit for bit.
+equals the ungated call bit for bit.  A batched ``lk_pyramid`` launch gives
+each sequence the bits of its own single launch, gated or not, and a replay
+of the batched multi-sequence step's graph equals the eager batched step
+bit for bit.
 """
 
 import numpy as np
@@ -264,6 +267,79 @@ def test_eager_track_frame_makes_no_host_sync(dev):
     assert out[2].shape == (pfrontend.OUTCOME_SIZE,)
 
 
+def test_lk_pyramid_batched_launch_equals_single_launches(frames):
+    """One launch for three sequences (the frames shifted apart) against
+    three single launches, bit for bit; gated off, a sequence keeps no
+    track; one counted launch, one batched."""
+    a, b, pts = frames
+    A = torch.stack([a, a.roll(3, 1), a.flip(1)])
+    Bn = torch.stack([b, b.roll(3, 1), b.flip(1)])
+    pa, pb = build_lk_pyramid(A, 3), build_lk_pyramid(Bn, 3)
+    P = torch.stack([pts, pts + torch.tensor([3.0, 0.0], device=a.device),
+                     torch.stack([a.shape[1] - 1 - pts[:, 0], pts[:, 1]], 1)])
+    init = P + 1.5
+    kw = dict(iters=20, forward_backward=2.0, fb_iters=10)
+    single = [plk_pyramid.lk_pyramid([x[s] for x in pa], [y[s] for y in pb], P[s], init[s], **kw)
+              for s in range(3)]
+    n0 = (plk_pyramid.lk_pyramid.launches, plk_pyramid.lk_pyramid.batched_launches)
+    gate = torch.tensor([True, False, True], device=a.device)
+    ungated = plk_pyramid.lk_pyramid(pa, pb, P, init, **kw)
+    gated = plk_pyramid.lk_pyramid(pa, pb, P, init, gate=gate, **kw)
+    torch.cuda.synchronize()
+    assert (plk_pyramid.lk_pyramid.launches, plk_pyramid.lk_pyramid.batched_launches) == (
+        n0[0] + 2, n0[1] + 2)
+    for s in range(3):
+        assert all(torch.equal(x[s], y) for x, y in zip(ungated, single[s])), s
+        if gate[s]:
+            assert all(torch.equal(x[s], y) for x, y in zip(gated, single[s])), s
+        else:
+            assert not bool(gated.status[s].any()) and torch.equal(gated.points[s], init[s])
+            assert not bool(gated.error[s].any())
+
+
+def test_multiseq_graph_replay_equals_eager_step(dev):
+    """Each replay of the batched step's CUDA graph against the eager
+    batched step on the same static inputs, bit for bit, over 10 steps of
+    two sequences (keyframe steps among them), each replay kept before
+    keyframe service writes into the graph's outputs; the eager step makes
+    no host sync; one replay a step."""
+    from stereoslam_tpu_torch.core.graphs import _clone, _flat
+    from stereoslam_tpu_torch.parallel.multiseq import MultiSeqVO
+
+    seqs = [generate_sequence(n_frames=12, trajectory="forward", seed=s) for s in (3, 5)]
+    seq0 = seqs[0]
+    cfg = pconfig.SlamConfig(
+        camera=pconfig.CameraConfig(fx=seq0.fx, fy=seq0.fy, cx=seq0.cx, cy=seq0.cy,
+                                    fx_right=seq0.fx, fy_right=seq0.fy, cx_right=seq0.cx,
+                                    cy_right=seq0.cy, bf=seq0.fx * seq0.baseline),
+        features=pconfig.FeatureConfig(n_init_features=200, n_new_features=100, max_features=256,
+                                       num_features_init_good=50, num_features_tracking_good=50,
+                                       num_features_tracking_bad=10),
+        map=pconfig.MapConfig(max_keyframes=256, max_landmarks=20000),
+        image_height=seq0.left.shape[1], image_width=seq0.left.shape[2],
+    )
+    vo = MultiSeqVO(cfg, batch=2, device=dev)
+    stack = lambda t, f: np.stack([getattr(q, f)[t] for q in seqs])  # noqa: E731
+    vo.initialize(stack(0, "left"), stack(0, "right"), np.zeros(2))
+    g = vo.graph
+    for t in range(1, 12):
+        lr = vo._stack(stack(t, "left"), stack(t, "right"))
+        if t >= 2:  # the graph exists: replay this step's inputs, then the eager step
+            replayed = _clone(g.run(lr, vo._pyr_prev, vo.fs, vo.maps))
+            g.replays -= 1
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = g._frame(*g._inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(_flat(eager), _flat(replayed))), t
+        vo.process_staged(lr, np.full(2, t * 0.1))
+    vo.drain()
+    assert g.replays == 11 and vo.alive.all() and (vo.maps.n_kf.cpu().numpy() >= 2).all()
+
+
 def test_lk_pyramid_wrapper_rejects_what_the_kernel_does_not_take(frames):
     a, b, pts = frames
     pa, pb = list(build_lk_pyramid(a, 3)), list(build_lk_pyramid(b, 3))
@@ -356,6 +432,67 @@ def test_device_feed_delivers_every_frame_bit_for_bit(dev):
     for (left, right, ts), (_, lr, ts_got) in zip(frames, got):
         want = np.stack([left, right]).astype(np.uint8)
         assert np.array_equal(lr.cpu().numpy(), want) and ts_got == ts
+
+
+def test_batch_feed_delivers_every_batch_bit_for_bit(dev):
+    from stereoslam_tpu_torch.utils.feed import BatchFeed
+
+    rng = np.random.default_rng(1)
+    n, b = 20, 3
+    batches = [(rng.uniform(0, 255, (b, 120, 188)), rng.uniform(0, 255, (b, 120, 188)),
+                np.full(b, 0.1 * t)) for t in range(n)]
+    got = []
+    for lr, ts in BatchFeed(iter(batches), depth=3, device=dev):
+        assert lr.device.type == "cuda" and lr.dtype == torch.uint8 and lr.shape == (b, 2, 120, 188)
+        assert ts.shape == (b,) and ts.dtype == np.float32
+        got.append((lr.float().sum(), lr.clone(), ts))  # work queued on the consumer stream
+    torch.cuda.synchronize()
+    assert len(got) == n
+    for (left, right, ts), (_, lr, ts_got) in zip(batches, got):
+        want = np.stack([left, right], axis=1).astype(np.uint8)
+        assert np.array_equal(lr.cpu().numpy(), want)
+        np.testing.assert_array_equal(ts_got, ts.astype(np.float32))
+
+
+def test_batch_feed_lifecycle_on_the_card(dev):
+    """tests/test_feed.py's lifecycle for the staging thread: a slow
+    consumer still sees the end, an early break stops the producer, and a
+    producer error reaches the consumer after the batches before it."""
+    import threading
+    import time
+
+    from stereoslam_tpu_torch.utils.feed import BatchFeed
+
+    def batches(n):
+        for t in range(n):
+            yield np.full((2, 8, 12), t), np.full((2, 8, 12), t), np.full(2, float(t))
+
+    feed = BatchFeed(batches(10), depth=2, device=dev)
+    seen = []
+    for lr, ts in feed:
+        time.sleep(0.01)
+        seen.append(int(ts[0]))
+    assert seen == list(range(10))
+    feed._thread.join(timeout=5.0)
+    assert not feed._thread.is_alive()
+
+    n_before = threading.active_count()
+    feed = BatchFeed(batches(100), depth=2, device=dev)
+    for i, _ in enumerate(feed):
+        if i == 3:
+            break
+    feed.close()
+    assert not feed._thread.is_alive() and threading.active_count() <= n_before + 1
+
+    def bad():
+        yield from batches(2)
+        raise RuntimeError("disk died")
+
+    got = []
+    with pytest.raises(RuntimeError, match="disk died"):
+        for _, ts in BatchFeed(bad(), depth=2, device=dev):
+            got.append(ts)
+    assert len(got) == 2
 
 
 def test_checkpoint_round_trip_on_card(dev, tmp_path):
