@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # the full run: VO, CLI, CALC, loop-closing, world and
-                                         # multi-sequence phases
+    python3 chip_smoke.py                # the full run: VO, CLI, undistortion, CALC, Caffe,
+                                         # loop-closing, world, endurance and multi-sequence
     python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
 
 Phases, each printing its lines and stopping the run with a non-zero exit on
@@ -51,11 +51,28 @@ failure:
              stereoslam_tpu_torch.run`` with the default flags (loop closing
              with trained CALC) on 40 frames as a subprocess and checks its
              files; checks phase main's profiler records.
-7. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
+7. undistort — bench.py's undistortion-ON configuration (k1 -0.28, k2 0.07
+             on both cameras) on phase main's frames: the remapped pair on
+             the card against the plain CPU remap, its device time, a timed
+             run beside phase main's configuration run right after it, no
+             LOST, keyframes within the band of the JAX package's CPU run of
+             the same configuration (scripts/jax_undistort_run.py), one graph
+             replay and at least one ``lk_pyramid`` launch per tracked frame,
+             the pinned run, then a checking run: replay against the eager
+             ``track_frame`` on 3 frames (bit for bit), one host read per
+             keyframe-free frame, and the same trajectory.
+8. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
              and the HOG descriptor on one 376x1241 keyframe image, on the
              card against the same module on the CPU (float32, TF32 off),
              with each one's device time per call.
-8. loop    — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
+9. caffe   — a CALC-shaped Caffe net written from a seed (deploy.prototxt and
+             calc.caffemodel: 1x1x120x160 input, Convolution/ReLU/Pooling/LRN,
+             a 1064-value last blob): the importer's runner on the card
+             against the CPU; ``StereoSlam`` with the files in
+             ``cfg.loop.caffe_*`` over 40 of phase main's frames, loop
+             closing on, every stored keyframe descriptor equal to the runner
+             on that keyframe's preprocessed left image.
+10. loop   — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
              descriptor over a closed blob-world circuit at KITTI geometry,
              with the full-size state (400 features x 8 ORB levels, 1536
              keyframe rows, 131,072 landmark rows); checks no LOST, a true
@@ -63,7 +80,7 @@ failure:
              through ``lk_pyramid``, and that the run repeats the port's
              known one; prints FPS, per-stage keyframe times and PGO
              iterations.
-9. world   — the canonical 548-frame world circuit of ``run_world_eval``
+11. world  — the canonical 548-frame world circuit of ``run_world_eval``
              (240x376, trained CALC at the shipped 0.94/0.92 thresholds):
              renders it on the card and holds four frames of each camera to
              the CPU render; checks ``DeviceFeed`` over 50 host frames; runs
@@ -78,7 +95,18 @@ failure:
              checkpoint into a fresh ``StereoSlam``; prints FPS, p50, ATE,
              edges, per-stage keyframe times, and the refused loop
              verifications by the guard that refused them.
-10. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
+12. endurance — (a) ``run_endurance(device="cuda")`` cut from 10.8 laps to 2
+             (843 frames): tracking at least as far as the JAX package's CPU
+             run of the same frames (LOST at frame 678), every loop edge a
+             true revisit with an id gap >= 20, FPS, p50 over the first and
+             last 800 frames, the
+             detection scan and full-graph PGO at the final size; (b) the
+             first 548 frames with the landmark table cut until live
+             compaction fires at least twice: no LOST, the tracked frame
+             after each compaction replayed bit for bit as the eager
+             ``track_frame``, no live track left on a freed row.  The full
+             run is ``scripts/torch_endurance.py``'s.
+13. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
              ``MultiSeqVO``): (a) one batched ``lk_pyramid`` launch at bench.py
              Phase M's shapes (B=8, 240x376, 3 levels, 400 slots a sequence)
              against 8 single launches (bit for bit), with a mixed gate
@@ -97,7 +125,7 @@ failure:
              (``scripts/torch_multiseq_world.py``: two world circuits loop ON
              and OFF): no LOST, every edge a true revisit, ATE ON <= OFF a
              sequence, printed beside the TPU record with the refusals.
-11. profile — with ``--profile N``: device busy share, the top kernels, the
+14. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame
              for keyframe, replenish and keyframe-free frames.
 
@@ -614,39 +642,22 @@ def phase_main(dev, seq, work: Path, card: str):
     from stereoslam_tpu_torch.core.system import StereoSlam
     from stereoslam_tpu_torch.ops import lk as L
     from stereoslam_tpu_torch.ops import lk_level as K
-    from stereoslam_tpu_torch.utils.metrics import ate_rmse
 
     cfg = kitti_config(seq)
     slam = StereoSlam(cfg, device=dev, enable_loop=False)
     n = len(seq.left)
-    L.lk_pyramid.launches = 0
-    K.lk_level.launches = 0
-    K.lk_final_error.launches = 0
-    times = []
-    t_warm = None
-    for t in range(n):
-        t0 = time.perf_counter()
-        ok = slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if not ok:
-            fail("main", "LOST", f"tracking LOST at frame {t}")
-        if t == WARMUP - 1:
-            t_warm = time.perf_counter()
-    t_end = time.perf_counter()
+    reset_counters()
+    fps, p50 = timed_run(slam, seq, "main")
     launches = {"lk_pyramid": L.lk_pyramid.launches, "lk_level": K.lk_level.launches,
                 "lk_final_error": K.lk_final_error.launches}
 
     n_kf, n_lm = int(slam.map.n_kf), int(slam.map.n_lm)
-    ids, T = slam.frame_trajectory()
+    _, T = slam.frame_trajectory()
     if T.shape != (n, 4, 4) or not np.isfinite(T).all():
         fail("main", "trajectory", f"frame trajectory has shape {T.shape} or non-finite poses")
-    gt = np.linalg.inv(seq.T_cw[ids].astype(np.float64))
-    ate = ate_rmse(np.linalg.inv(T.astype(np.float64)), gt, align=False)
+    ate = frame_ate(slam, seq)
     tracked = n - 1  # every frame after the stereo-init frame
     gated, fired = rescue_launches(cfg, tracked), slam.rescues["retry"] + slam.rescues["deep"]
-    fps = (n - WARMUP) / (t_end - t_warm)
-    p50 = float(np.median(times[WARMUP:])) * 1e3
     print(f"main: {n} frames 376x1241: {fps:.2f} FPS after {WARMUP} warmup frames, p50 frame "
           f"{p50:.2f} ms [{card}]", flush=True)
     print(f"main: n_kf {n_kf}, n_lm {n_lm}, frame ATE {ate:.4f} m (align=False; the JAX package "
@@ -789,7 +800,7 @@ def phase_pipeline(dev, seq, main_slam, card: str) -> None:
     host syncs per frame by kind, lag 10 and process_chunk against phase
     main's run, and the keyframe-free frame eager against replayed."""
     from stereoslam_tpu_torch.core import frontend as F
-    from stereoslam_tpu_torch.core.graphs import _clone, _flat
+    from stereoslam_tpu_torch.core.graphs import _clone
     from stereoslam_tpu_torch.core.system import StereoSlam
     from stereoslam_tpu_torch.utils.metrics import ate_rmse
 
@@ -818,11 +829,8 @@ def phase_pipeline(dev, seq, main_slam, card: str) -> None:
         kind = frame_kind(before, (int(slam.map.n_kf), int(slam.map.n_lm)))
         if t >= 2:  # frame 0 initializes, frame 1 captures the graph
             syncs[kind].append((sc.n, slam.outcome_reads - reads))
-        if t >= 1:
-            eager = g._frame(*g._inputs)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(_flat(eager), _flat(g._outputs))):
-                differ.append(t)
+        if t >= 1 and not replay_equals_eager(g):
+            differ.append(t)
         if kind == "plain" and t >= WARMUP and snapshot is None:
             snapshot = (t, _clone(g._inputs))
     print(f"pipeline: graph replay against the eager track_frame on the same inputs, frames "
@@ -1536,6 +1544,381 @@ def phase_world(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase undistort: bench.py's undistortion-ON configuration
+# ---------------------------------------------------------------------------
+
+# bench.py:125-140: KITTI-raw-magnitude radial distortion (about 25 px at the
+# image edge) on both cameras, p1 = p2 = 0, on phase main's frames.
+UNDIST_K1, UNDIST_K2 = -0.28, 0.07
+UNDIST_REMAP_TOL = 1e-3            # gray levels, the card's remap against the plain CPU remap
+UNDIST_CHECK_FRAMES = (13, 14, 15)  # replays held to the eager track_frame
+# The JAX package on a CPU over the same 100 frames (scripts/jax_undistort_run.py):
+# no LOST, 15 keyframes, 881 landmarks, frame ATE 0.6291 m (undistortion OFF:
+# 15, 877, 0.0905 m; the synthetic frames carry no distortion, so the remap
+# bends straight edges).  With 15 keyframes either way, the band is phase
+# main's.
+UNDIST_JAX_KF = 15
+UNDIST_KF_BAND = KF_BAND
+# The run as the port produces it on the card, bit for bit in every call:
+# (keyframes, landmarks, frame ATE in m).
+EXPECTED_UNDIST_RUN = (15, 853, 0.5633)
+
+
+def undistort_config(seq):
+    cfg = kitti_config(seq)
+    return cfg.replace(camera=dataclasses.replace(
+        cfg.camera, need_undistortion=True, k1=UNDIST_K1, k2=UNDIST_K2, k1_right=UNDIST_K1,
+        k2_right=UNDIST_K2))
+
+
+def timed_run(slam, seq, phase: str):
+    """``process_frame`` over the sequence, the card synchronized after each
+    frame: (FPS after WARMUP frames, p50 frame ms after them)."""
+    times, t_warm = [], None
+    for t in range(len(seq.left)):
+        t0 = time.perf_counter()
+        ok = slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not ok:
+            fail(phase, "LOST", f"tracking LOST at frame {t}")
+        if t == WARMUP - 1:
+            t_warm = time.perf_counter()
+    fps = (len(seq.left) - WARMUP) / (time.perf_counter() - t_warm)
+    return fps, float(np.median(times[WARMUP:])) * 1e3
+
+
+def frame_ate(slam, seq) -> float:
+    from stereoslam_tpu_torch.utils.metrics import ate_rmse
+
+    ids, T = slam.frame_trajectory()
+    gt = np.linalg.inv(seq.T_cw[ids].astype(np.float64))
+    return float(ate_rmse(np.linalg.inv(T.astype(np.float64)), gt, align=False))
+
+
+def replay_equals_eager(graph) -> bool:
+    """The last replay's outputs against the eager frame on the same static
+    inputs (launches made for the comparison do not count)."""
+    from stereoslam_tpu_torch.core.graphs import _flat
+
+    with KeepCounters():
+        eager = graph._frame(*graph._inputs)
+        torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(_flat(eager), _flat(graph._outputs)))
+
+
+def phase_undistort(dev, seq, card: str):
+    """Undistortion ON on phase main's frames: the remap on the card against
+    the CPU's, a timed run against phase main's configuration back to back,
+    launches and replays, the band and the pin, then a checking run (host
+    reads, replay against eager, the repeat)."""
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+    from stereoslam_tpu_torch.ops.camera import undistort_image, undistortion_map
+
+    cfg = undistort_config(seq)
+    n, h, w = len(seq.left), cfg.image_height, cfg.image_width
+    tracked = n - 1
+
+    # The remapped pair on the card against the plain remap on the CPU.
+    slam = StereoSlam(cfg, device=dev, enable_loop=False)
+    lr = torch.from_numpy(np.stack([seq.left[0], seq.right[0]]).astype(np.uint8))
+    lr_dev = lr.to(dev)
+    c = cfg.camera
+    worst, shift = 0.0, 0.0
+    for i, (pre, intr, dist) in enumerate(((slam._pre_left, slam.intr_left, (c.k1, c.k2, c.p1, c.p2)),
+                                           (slam._pre_right, slam.intr_right,
+                                            (c.k1_right, c.k2_right, c.p1_right, c.p2_right)))):
+        src = undistortion_map(h, w, intr, torch.tensor(dist))
+        ref = undistort_image(lr[i].to(torch.float32), src)
+        worst = max(worst, (pre(lr_dev[i]).cpu() - ref).abs().max().item())
+        grid = torch.stack(torch.meshgrid(torch.arange(w), torch.arange(h), indexing="xy"), -1)
+        shift = max(shift, (src - grid).norm(dim=-1).max().item())
+    t_remap = device_ms(lambda: slam._pre_left(lr_dev[0]), launches=50)
+    t_widen = device_ms(lambda: lr_dev[0].to(torch.float32), launches=50)
+    print(f"undistort: {h}x{w}, k1 {UNDIST_K1}, k2 {UNDIST_K2} on both cameras (largest source "
+          f"shift {shift:.1f} px): remapped pair on the card against the plain CPU remap max |d| "
+          f"{worst:.2e} gray levels; device time per image: widen + remap {t_remap * 1e3:.2f} us, "
+          f"widen alone {t_widen * 1e3:.2f} us [{card}]", flush=True)
+    if not worst <= UNDIST_REMAP_TOL:
+        fail("undistort", "remap card vs CPU", f"max |d| {worst:.2e} > {UNDIST_REMAP_TOL}")
+
+    # The timed run, then phase main's configuration on the same frames.
+    reset_counters()
+    fps, p50 = timed_run(slam, seq, "undistort")
+    launches = {"lk_pyramid": L.lk_pyramid.launches,
+                "per_level": K.lk_level.launches + K.lk_final_error.launches}
+    with KeepCounters():
+        fps_off, p50_off = timed_run(StereoSlam(kitti_config(seq), device=dev, enable_loop=False),
+                                     seq, "undistort")
+    n_kf, n_lm, ate = int(slam.map.n_kf), int(slam.map.n_lm), frame_ate(slam, seq)
+    print(f"undistort: {n} frames: {fps:.2f} FPS, p50 {p50:.2f} ms with undistortion; phase main's "
+          f"configuration right after, same process: {fps_off:.2f} FPS, p50 {p50_off:.2f} ms "
+          f"(after {WARMUP} warm-up frames) [{card}]", flush=True)
+    print(f"undistort: n_kf {n_kf}, n_lm {n_lm}, frame ATE {ate:.4f} m (align=False; the JAX "
+          f"package on a CPU: {UNDIST_JAX_KF} KFs, band {UNDIST_KF_BAND}); lk_pyramid launches "
+          f"{launches['lk_pyramid']} ({launches['lk_pyramid'] / tracked:.2f}/tracked frame), "
+          f"per-level {launches['per_level']}; {slam.track_graph.replays} graph replays", flush=True)
+    if slam.track_graph.replays != tracked:
+        fail("undistort", "graph", f"{slam.track_graph.replays} replays for {tracked} tracked frames")
+    if launches["lk_pyramid"] < tracked or launches["per_level"]:
+        fail("undistort", "launches", f"{launches} for {tracked} tracked frames")
+    if not UNDIST_KF_BAND[0] <= n_kf <= UNDIST_KF_BAND[1]:
+        fail("undistort", "keyframes", f"{n_kf} keyframes outside {UNDIST_KF_BAND}")
+    run = (n_kf, n_lm, round(ate, 4))
+    if run != EXPECTED_UNDIST_RUN:
+        fail("undistort", "repeat", f"(KFs, landmarks, ATE) = {run}, expected "
+             f"{EXPECTED_UNDIST_RUN}: the run repeats bit for bit, so the code's arithmetic changed")
+
+    # The checking run: frames staged in advance, host reads per frame,
+    # replays against the eager frame, the same run again.
+    staged = [torch.from_numpy(np.stack([seq.left[t], seq.right[t]]).astype(np.uint8)).to(dev)
+              for t in range(n)]
+    chk = StereoSlam(cfg, device=dev, enable_loop=False)
+    plain, differ = [], []
+    with KeepCounters():
+        for t in range(n):
+            before = (int(chk.map.n_kf), int(chk.map.n_lm))
+            reads = chk.outcome_reads
+            torch.cuda.synchronize()
+            with SyncCount() as sc:
+                chk.process_staged(staged[t], seq.timestamps[t])
+            kind = frame_kind(before, (int(chk.map.n_kf), int(chk.map.n_lm)))
+            if t >= 2 and kind == "plain":
+                plain.append((sc.n, chk.outcome_reads - reads))
+            if t in UNDIST_CHECK_FRAMES and not replay_equals_eager(chk.track_graph):
+                differ.append(t)
+    same = all(np.array_equal(a, b) for a, b in zip(chk.frame_trajectory(), slam.frame_trajectory()))
+    arr = np.asarray(plain)
+    print(f"undistort: checking run: replay against the eager track_frame at frames "
+          f"{UNDIST_CHECK_FRAMES}: {'bit-identical' if not differ else f'DIFFER at {differ}'}; "
+          f"{len(plain)} keyframe-free frames: other syncs max {arr[:, 0].max()}, outcome reads "
+          f"{sorted(set(arr[:, 1].tolist()))}; frame trajectory "
+          f"{'bit-identical to' if same else 'DIFFERS from'} the timed run's", flush=True)
+    if differ:
+        fail("undistort", "replay vs eager", f"replay differs from the eager frame at {differ}")
+    if len(plain) == 0 or not (arr[:, 0] == 0).all() or not (arr[:, 1] == 1).all():
+        fail("undistort", "syncs", f"a keyframe-free frame made other than one host read: {plain}")
+    if not same:
+        fail("undistort", "repeat", "the checking run's trajectory differs from the timed run's")
+    return launches["lk_pyramid"]
+
+
+# ---------------------------------------------------------------------------
+# Phase caffe: the reference's CALC model files through the importer
+# ---------------------------------------------------------------------------
+
+CAFFE_SEED = 9
+CAFFE_FRAMES = 40
+
+
+def caffe_net_writer():
+    """tests/_caffe_net.py: the protobuf writer and the CALC-shaped net."""
+    path = Path(__file__).resolve().parent / "tests" / "_caffe_net.py"
+    spec = importlib.util.spec_from_file_location("_caffe_net", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_caffe(dev, seq, card: str):
+    """A CALC-shaped Caffe net (deploy.prototxt + calc.caffemodel written
+    from a seed): the runner on the card against the CPU, then StereoSlam
+    with the files in its config over phase main's first frames, loop
+    closing on, and every stored keyframe descriptor against the runner."""
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.models.calc import preprocess
+    from stereoslam_tpu_torch.models.import_caffe import CaffeNetRunner
+    from stereoslam_tpu_torch.ops import lk as L
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_caffe_") as work:
+        proto, model = caffe_net_writer().write_calc_shaped(work, seed=CAFFE_SEED)
+        on_cpu = CaffeNetRunner.from_files(proto, model)
+        on_card = CaffeNetRunner.from_files(proto, model).to(dev)
+        cfg = kitti_config(seq)
+        cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, caffe_prototxt=proto,
+                                                   caffe_weights=model))
+        slam = StereoSlam(cfg, device=dev)
+    layers = [f"{l.type}" for l in on_cpu.net.layers]
+    img = preprocess(torch.from_numpy(seq.left[0].astype(np.uint8)).to(torch.float32))
+    img_dev = img.to(dev)
+    got, ref = on_card.descriptor(img_dev).cpu(), on_cpu.descriptor(img)
+    err, dot = (got - ref).abs().max().item(), float(got @ ref)
+    ms = device_ms(lambda: on_card.descriptor(img_dev), launches=20)
+    print(f"caffe: CALC-shaped net (seed {CAFFE_SEED}, input {on_cpu.net.input_shape}, layers "
+          f"{layers}): descriptor {tuple(got.shape)} on the card against the CPU max |d| "
+          f"{err:.2e}, dot {dot:.7f}; device time {ms:.4f} ms per call [{card}]", flush=True)
+    if not (got.shape == (1064,) and err <= CALC_MAX_ABS and dot >= CALC_MIN_DOT):
+        fail("caffe", "card vs CPU", f"the Caffe runner on the card disagrees with the CPU "
+             f"(shape {tuple(got.shape)}, max |d| {err:.2e}, dot {dot:.7f})")
+
+    runner = slam._loop_closer.model._caffe
+    if runner is None:
+        fail("caffe", "wiring", "cfg.loop.caffe_weights did not select the Caffe runner")
+    reset_counters()
+    for t in range(CAFFE_FRAMES):
+        if not slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t]):
+            fail("caffe", "LOST", f"tracking LOST at frame {t}")
+    torch.cuda.synchronize()
+    launches = L.lk_pyramid.launches
+    n_kf = int(slam.map.n_kf)
+    fid = slam.map.kf_frame_id[:n_kf].cpu().numpy()
+    worst, exact = 0.0, True
+    for k in range(n_kf):
+        left = slam._pre_left(torch.from_numpy(seq.left[fid[k]].astype(np.uint8)).to(dev))
+        want = runner.descriptor(preprocess(left))
+        have = slam.loop.deep_db[k]
+        exact &= torch.equal(have, want)
+        worst = max(worst, (have - want).abs().max().item())
+    print(f"caffe: StereoSlam with cfg.loop.caffe_prototxt/caffe_weights, loop closing on, "
+          f"{CAFFE_FRAMES} frames of phase main: no LOST, {n_kf} keyframes; stored descriptors "
+          f"against the runner on each keyframe's preprocessed left image: "
+          f"{'bit-identical' if exact else f'max |d| {worst:.2e}'}; lk_pyramid launches "
+          f"{launches} [{card}]", flush=True)
+    if not exact:
+        fail("caffe", "descriptors", f"stored keyframe descriptors differ from the runner's "
+             f"(max |d| {worst:.2e})")
+    if launches < CAFFE_FRAMES - 1:
+        fail("caffe", "launches", f"{launches} lk_pyramid launches for {CAFFE_FRAMES - 1} frames")
+
+
+# ---------------------------------------------------------------------------
+# Phase endurance: the reference-scale run, cut in depth, and live compaction
+# ---------------------------------------------------------------------------
+
+# (a) run_endurance cut from 10.8 laps to 2 (843 of 4,557 frames); the full
+# run is scripts/torch_endurance.py's.  (b) The first 548 frames (the world
+# circuit's 1.3 laps) with the landmark table cut from 49,152 rows to
+# ENDUR_B_MAX_LANDMARKS, so that its 90% threshold (8,294) is crossed at least
+# twice: on the card the first compaction fires at frame 329 (1,350 rows
+# freed), the next at frame 444, and then at nearly every keyframe, each
+# freeing fewer rows, until the table fills at frame 539.
+ENDUR_LAPS = 2.0
+# The JAX package on a CPU over the CPU render of the same 843 frames
+# (scripts/jax_world_trace.py run) goes LOST at frame 678, in the second lap's
+# slow corner, loop closing ON and OFF alike, with no loop edge: it does not
+# reach the end of (a) itself.  As phase world's ATE band is the JAX CPU run's,
+# (a) holds the port to tracking at least as far as that run.
+ENDUR_JAX_CPU_LOST_AT = 678
+ENDUR_B_FRAMES = 548
+ENDUR_B_MAX_LANDMARKS = 9216
+ENDUR_MIN_COMPACTIONS = 2
+ENDUR_MAX_EDGE_GT_M = 5.0
+
+
+def phase_endurance(dev, card: str):
+    from stereoslam_tpu_torch import eval as E
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+    from stereoslam_tpu_torch.utils import world as W
+
+    n_full = int(W.frames_per_lap(E.WORLD_STEP, E.WORLD_LENGTH, E.WORLD_WIDTH) * E.ENDURANCE_LAPS)
+    n = int(W.frames_per_lap(E.WORLD_STEP, E.WORLD_LENGTH, E.WORLD_WIDTH) * ENDUR_LAPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = W.generate_world_sequence(n_frames=n, h=E.WORLD_H, w=E.WORLD_W, fx=320.0,
+                                    seed=E.WORLD_SEED, step=E.WORLD_STEP, length=E.WORLD_LENGTH,
+                                    width=E.WORLD_WIDTH, device=dev)
+    torch.cuda.synchronize()
+    print(f"endurance: (a) run_endurance cut in depth from {E.ENDURANCE_LAPS} laps ({n_full} "
+          f"frames) to {ENDUR_LAPS} laps ({n} frames), rendered on the card in "
+          f"{time.perf_counter() - t0:.1f} s; table {E.ENDURANCE_MAX_LANDMARKS} landmark rows "
+          f"[{card}]", flush=True)
+    reset_counters()
+    rec = E.run_endurance(laps=ENDUR_LAPS, seq=seq, device=dev)
+    launches = L.lk_pyramid.launches
+    per_level = K.lk_level.launches + K.lk_final_error.launches
+    print(f"endurance: (a) record {json.dumps(rec)}", flush=True)
+    edges = [(c, lp, c - lp, d) for (c, lp), d in zip(rec["loop_edges"], rec["edge_gt_dist_m"])]
+    print(f"endurance: (a) {rec['frames']} frames, {rec['fps']} FPS, p50 frame "
+          f"{rec['frame_ms_p50_first800']} ms (first 800) / {rec['frame_ms_p50_last800']} ms (last "
+          f"800), detection scan at {rec['n_kf']} KFs {rec['db_scan_ms_final']} ms, full-graph PGO "
+          f"{rec['pgo_ms_final_fullgraph']} ms; ATE {rec['ate_m']} m, {rec['true_revisit_edges']} "
+          f"true of {len(edges)} edges (cur, loop, id gap, ground-truth m) {edges}, "
+          f"{rec['compactions']} compactions; lk_pyramid launches {launches} "
+          f"({launches / max(rec['frames'] - 1, 1):.2f}/tracked frame), per-level {per_level} "
+          f"[{card}]", flush=True)
+    if rec["lost_at"] is not None:
+        print(f"endurance: (a) LOST at frame {rec['lost_at']} of {n} (the JAX package on a CPU: "
+              f"LOST at frame {ENDUR_JAX_CPU_LOST_AT} of the same frames)", flush=True)
+    if rec["lost_at"] is not None and rec["lost_at"] < ENDUR_JAX_CPU_LOST_AT:
+        fail("endurance", "LOST", f"(a): LOST at frame {rec['lost_at']}, before the JAX "
+             f"package's CPU run of the same frames ({ENDUR_JAX_CPU_LOST_AT})")
+    for c, lp, gap, dist in edges:
+        if gap < 20 or not dist < ENDUR_MAX_EDGE_GT_M:
+            fail("endurance", "edges", f"(a): edge {c}->{lp} has id gap {gap} or ground-truth "
+                 f"distance {dist} m")
+    if launches < rec["frames"] - 1 or per_level:
+        fail("endurance", "launches", f"(a): {launches} lk_pyramid launches for "
+             f"{rec['frames'] - 1} tracked frames, {per_level} per-level")
+
+    # (b) Live compaction at the world circuit's width.
+    cfg = E.endurance_config(seq, E.WORLD_H, E.WORLD_W, max_landmarks=ENDUR_B_MAX_LANDMARKS)
+    slam = StereoSlam(cfg, device=dev)
+    log_lines = LogLines()
+    sys_log = logging.getLogger("stereoslam_tpu_torch.core.system")
+    sys_log.addHandler(log_lines)
+    sys_log.setLevel(logging.INFO)
+    reset_counters()
+    events, bad_links, differ, pending = [], [], [], None
+    t0 = time.perf_counter()
+    try:
+        for t in range(ENDUR_B_FRAMES):
+            lr = torch.stack([seq.left[t], seq.right[t]]).to(torch.uint8)
+            before = slam.compaction_count
+            if not slam.process_staged(lr, float(seq.timestamps[t])):
+                fail("endurance", "LOST", f"(b): tracking LOST at frame {t}")
+            if pending is not None:
+                if not replay_equals_eager(slam.track_graph):
+                    differ.append(t)
+                pending = None
+            if slam.compaction_count > before:
+                tr, m = slam.fs.tracks, slam.map
+                n_lm = int(m.n_lm)
+                linked = tr.valid & (tr.lm_idx >= 0)
+                idx = tr.lm_idx.long().clamp(min=0)
+                stale = linked & ((tr.lm_idx >= n_lm) | ~m.lm_valid[idx])
+                events.append((t, n_lm, int(linked.sum())))
+                if bool(stale.any()):
+                    bad_links.append((t, int(stale.sum())))
+                pending = t
+    finally:
+        sys_log.removeHandler(log_lines)
+        sys_log.setLevel(logging.NOTSET)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_b = L.lk_pyramid.launches
+    compacted = [s for s in log_lines.lines if "compacted" in s or "exhausted" in s]
+    checked = len(events) - (pending is not None)
+    print(f"endurance: (b) {ENDUR_B_FRAMES} frames, landmark table cut from "
+          f"{E.ENDURANCE_MAX_LANDMARKS} to {ENDUR_B_MAX_LANDMARKS} rows (threshold "
+          f"{int(0.9 * ENDUR_B_MAX_LANDMARKS)}): {slam.compaction_count} live compactions "
+          f"(frame, n_lm after, linked tracks) {events}; {len(compacted)} log lines {compacted[:6]}; "
+          f"final n_lm {int(slam.map.n_lm)}, {int(slam.map.n_kf)} KFs, "
+          f"{len(slam.loop_edges)} loop edges; {ENDUR_B_FRAMES / wall:.2f} FPS with the checks; "
+          f"lk_pyramid launches {launches_b} [{card}]", flush=True)
+    print(f"endurance: (b) the tracked frame after each compaction: replay against the eager "
+          f"track_frame {'bit-identical' if not differ else f'DIFFERS at {differ}'} ({checked} "
+          f"checked); live tracks pointing at a freed or dead row: {bad_links or 'none'}",
+          flush=True)
+    if slam.compaction_count < ENDUR_MIN_COMPACTIONS:
+        fail("endurance", "compactions", f"(b): {slam.compaction_count} live compactions, "
+             f"expected >= {ENDUR_MIN_COMPACTIONS}")
+    if differ:
+        fail("endurance", "replay vs eager", f"(b): replay differs after compaction at {differ}")
+    if checked < ENDUR_MIN_COMPACTIONS:
+        fail("endurance", "replay vs eager", f"(b): only {checked} compactions were followed by a "
+             f"tracked frame")
+    if bad_links:
+        fail("endurance", "freed rows", f"(b): live tracks point at freed rows: {bad_links}")
+    if launches_b < ENDUR_B_FRAMES - 1:
+        fail("endurance", "launches", f"(b): {launches_b} lk_pyramid launches")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase multiseq: the batched multi-sequence mode
 # ---------------------------------------------------------------------------
 
@@ -2069,7 +2452,14 @@ def phase_profile(dev, seq, n_frames: int, card: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N")
+    ap.add_argument("--phases", default="", metavar="A,B",
+                    help="run only these phases after kernels and main (a check of a few "
+                         "phases: it prints no result lines)")
     args = ap.parse_args()
+    only = set(args.phases.split(",")) if args.phases else None
+
+    def phase(name: str, fn, *a):
+        return run_phase(name, fn, *a) if only is None or name in only else None
 
     if not torch.cuda.is_available():
         fail("device", "CUDA", "no CUDA device: the port's smoke run needs an NVIDIA GPU")
@@ -2093,19 +2483,25 @@ def main() -> None:
     numbers = run_phase("kernels", phase_kernels, dev, seq, card)
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     launches, main_slam = run_phase("main", phase_main, dev, seq, Path(work.name), card)
-    run_phase("pipeline", phase_pipeline, dev, seq, main_slam, card)
-    run_phase("cli", phase_cli, dev, seq, main_slam, Path(work.name), card)
+    phase("pipeline", phase_pipeline, dev, seq, main_slam, card)
+    phase("cli", phase_cli, dev, seq, main_slam, Path(work.name), card)
     del main_slam
     work.cleanup()
-    run_phase("calc", phase_calc, dev, seq.left[0], card)
-    run_phase("loop", phase_loop, dev, card)
-    worst_world = run_phase("world", phase_world, dev, card)
-    numbers["lk_pyramid"]["max_abs_err"] = max(numbers["lk_pyramid"]["max_abs_err"], worst_world)
-    numbers["lk_pyramid_batched"], launches["lk_pyramid_batched"] = run_phase(
-        "multiseq", phase_multiseq, dev, card)
+    undistort_launches = phase("undistort", phase_undistort, dev, seq, card)
+    phase("calc", phase_calc, dev, seq.left[0], card)
+    phase("caffe", phase_caffe, dev, seq, card)
+    phase("loop", phase_loop, dev, card)
+    worst_world = phase("world", phase_world, dev, card)
+    endurance_launches = phase("endurance", phase_endurance, dev, card)
+    batched = phase("multiseq", phase_multiseq, dev, card)
     if args.profile:
         run_phase("profile", phase_profile, dev, seq, min(args.profile, len(seq.left) - WARMUP),
                   card)
+    if only is not None:
+        print(f"phases {sorted(only)} after kernels and main: done (no result lines)", flush=True)
+        return
+    numbers["lk_pyramid"]["max_abs_err"] = max(numbers["lk_pyramid"]["max_abs_err"], worst_world)
+    numbers["lk_pyramid_batched"], launches["lk_pyramid_batched"] = batched
 
     kernels = [
         {"name": name, "route": "cuda", "source": "stereoslam_tpu_torch/csrc/lk_level.cu",
@@ -2116,6 +2512,8 @@ def main() -> None:
                                ("lk_final_error", "stereoslam_tpu/ops/lk_batched.py:137"),
                                ("lk_pyramid_batched", "stereoslam_tpu/ops/lk_pallas.py:185"))
     ]
+    print(f"launches: lk_pyramid on phase main {launches['lk_pyramid']}, undistort "
+          f"{undistort_launches}, endurance (a) {endurance_launches}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

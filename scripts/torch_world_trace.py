@@ -12,6 +12,7 @@ differ and how the difference grows.
 
 Usage:
   python scripts/torch_world_trace.py render frames.npz                 # on the CPU
+  python scripts/torch_world_trace.py render frames2.npz --frames 843   # 2 laps
   python scripts/torch_world_trace.py render card.npz --device cuda     # times the card's render
   python scripts/torch_world_trace.py run frames.npz --device cuda --out card.npz
   python scripts/torch_world_trace.py run frames.npz --device cpu --out cpu.npz   # about 30 min
@@ -29,7 +30,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def render(out: str, device: str) -> None:
+def render(out: str, device: str, n_frames: int = 0) -> None:
     import torch
 
     from stereoslam_tpu_torch import eval as E
@@ -39,7 +40,7 @@ def render(out: str, device: str) -> None:
     torch.zeros(1, device=dev)  # create the device context off the clock
     t0 = time.perf_counter()
     seq = W.generate_world_sequence(
-        n_frames=E.default_world_frames(), h=E.WORLD_H, w=E.WORLD_W, fx=320.0, seed=E.WORLD_SEED,
+        n_frames=n_frames or E.default_world_frames(), h=E.WORLD_H, w=E.WORLD_W, fx=320.0, seed=E.WORLD_SEED,
         step=E.WORLD_STEP, length=E.WORLD_LENGTH, width=E.WORLD_WIDTH, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -137,6 +138,7 @@ def main():
     r = sub.add_parser("render")
     r.add_argument("out")
     r.add_argument("--device", default="cpu")
+    r.add_argument("--frames", type=int, default=0, help="frames to render (default: 548)")
     g = sub.add_parser("run")
     g.add_argument("frames")
     g.add_argument("--device", default="cuda")
@@ -146,7 +148,7 @@ def main():
     c.add_argument("b")
     args = ap.parse_args()
     if args.cmd == "render":
-        render(args.out, args.device)
+        render(args.out, args.device, args.frames)
     elif args.cmd == "run":
         run(args.frames, args.device, args.out)
     else:

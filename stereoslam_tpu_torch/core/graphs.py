@@ -33,6 +33,13 @@ so at 3.35 TB/s the copies take about 3 us of the card's time.  The
 timestamp is not an input: only the keyframe branch, outside the graph,
 reads it.
 
+**The left image's preprocessing** (``pre_left``: the uint8 image to the
+float32 one the frame tracks) is the first step of the graph: a widening,
+and with undistortion on, the bilinear remap through the left camera's
+(H, W, 2) source grid.  The grid is built once by the facade and never
+written after, so it is a static input of the graph that needs no copy-in:
+the replay reads it where the capture found it.
+
 **Outputs** (the frame's float32 left image, its frontend state, its
 pyramid, its packed outcome) live in the graph's memory and are overwritten
 by the next replay.  A caller that keeps one across frames keeps a copy.
@@ -104,8 +111,9 @@ def _kernel_counters():
             (lk_level.lk_level, "launches"), (lk_level.lk_final_error, "launches"))
 
 
-def _single_frame(cfg: SlamConfig, intr: Intrinsics, lr_u8, pyr_prev, fs, track_map):
-    left = lr_u8[0].to(torch.float32)
+def _single_frame(cfg: SlamConfig, intr: Intrinsics, pre_left: Callable, lr_u8, pyr_prev, fs,
+                  track_map):
+    left = pre_left(lr_u8[0])
     fs2, pyr, packed = frontend_mod.track_frame(left, pyr_prev, fs, track_map, intr, cfg)
     return left, fs2, pyr, packed
 
@@ -115,9 +123,10 @@ class TrackGraph:
     the CPU: on the same static buffers, without a graph)."""
 
     def __init__(self, cfg: SlamConfig, intr_left: Intrinsics, device,
-                 frame_fn: Optional[Callable] = None):
+                 frame_fn: Optional[Callable] = None, pre_left: Optional[Callable] = None):
         self.device = torch.device(device)
-        self._frame = frame_fn or partial(_single_frame, cfg, intr_left)
+        pre_left = pre_left or (lambda u8: u8.to(torch.float32))
+        self._frame = frame_fn or partial(_single_frame, cfg, intr_left, pre_left)
         self.graph = None
         self._inputs = None
         self._outputs = None

@@ -101,10 +101,11 @@ def post_correction_unlink(tracks: TrackState, T_rk: torch.Tensor, ref_kf: torch
 class LoopCloser:
     """Host-side owner of the loop-closing stages for one device.
 
-    ``descriptor_model``: the whole-image descriptor (default: the shipped
-    trained CALC weights when present, else HOG).  Setting ``stage_times``
-    makes each stage end with a device synchronize and append its host wall
-    time to ``self.times[stage]``; PGO iteration counts go to
+    ``descriptor_model``: the whole-image descriptor (default: the
+    reference's Caffe model files where ``cfg.loop.caffe_weights`` is set,
+    else the shipped trained CALC weights when present, else HOG).  Setting
+    ``stage_times`` makes each stage end with a device synchronize and
+    append its host wall time to ``self.times[stage]``; PGO iteration counts go to
     ``self.times["pgo_gn"]`` / ``["pgo_cg"]`` either way.
     """
 
@@ -115,8 +116,10 @@ class LoopCloser:
         if descriptor_model is not None:
             self.model = descriptor_model       # tests pin the HOG surrogate this way
         elif cfg.loop.caffe_weights:
-            raise NotImplementedError("the Caffe CALC importer (cfg.loop.caffe_weights) is not "
-                                      "ported to stereoslam_tpu_torch yet")
+            # The reference's own calc_model files (deploy.prototxt +
+            # calc.caffemodel, reference deeplcd.h:33), read without Caffe.
+            self.model = calc.DescriptorModel.from_caffe(cfg.loop.caffe_prototxt,
+                                                         cfg.loop.caffe_weights)
         else:
             self.model = calc.DescriptorModel.default()
         self.generator = torch.Generator(device=self.device).manual_seed(7)

@@ -33,7 +33,17 @@ package's order whenever a verdict has landed by the next keyframe.  With
 ``inline_ba=False`` the BA runs synchronously when its keyframe retires:
 the JAX asynchronous BA's order whenever the BA lands before the next
 frame's poll (an asynchronous BA waits for a device-resident BA, since the
-port's reads the host once per iteration).  Undistortion is not ported yet.
+port's reads the host once per iteration).
+
+**Undistortion** (``camera.need_undistortion``, reference camera.cpp:36-48):
+the two (H, W, 2) source grids are built once at construction (in float32
+on the host, so every device remaps through the same grid) and kept on the
+device, and every widening of a camera image goes through
+``_pre_left`` / ``_pre_right`` (widen to float32, then the bilinear remap),
+as in the JAX facade: the left image inside the tracked frame's graph, the
+initialization pair, the right image of the keyframe and replenish branches,
+and the image handed to the loop closer, so CALC and ORB see the
+undistorted image.
 """
 
 from __future__ import annotations
@@ -53,13 +63,21 @@ from stereoslam_tpu_torch.core import loopclosing as loop_mod
 from stereoslam_tpu_torch.core.graphs import TrackGraph
 from stereoslam_tpu_torch.core.maintenance import compact_landmarks
 from stereoslam_tpu_torch.core.state import INITING, LOST, TRACKING_GOOD, init_all
-from stereoslam_tpu_torch.ops.camera import Intrinsics
+from stereoslam_tpu_torch.ops.camera import Intrinsics, undistort_image, undistortion_map
 from stereoslam_tpu_torch.ops.image import build_lk_pyramid
 from stereoslam_tpu_torch.utils import checkpoint as ckpt
 from stereoslam_tpu_torch.utils.prof import Profiler
 from stereoslam_tpu_torch.utils import trajectory as traj_io
 
 log = logging.getLogger(__name__)
+
+
+def _widen(u8: torch.Tensor) -> torch.Tensor:
+    return u8.to(torch.float32)
+
+
+def _widen_remap(src_map: torch.Tensor, u8: torch.Tensor) -> torch.Tensor:
+    return undistort_image(u8.to(torch.float32), src_map)
 
 
 class _Entry(NamedTuple):
@@ -107,8 +125,6 @@ class StereoSlam:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StereoSlam runs on the card by default and no CUDA device is "
                                "available: pass device='cpu' to run on the CPU")
-        if cfg.camera.need_undistortion:
-            raise NotImplementedError("undistortion is not ported to stereoslam_tpu_torch yet")
         cfg.validate()
         self.cfg = cfg
         self.enable_backend = enable_backend
@@ -120,10 +136,25 @@ class StereoSlam:
         self.intr_left = Intrinsics.create(cam.fx, cam.fy, cam.cx, cam.cy)
         self.intr_right = Intrinsics.create(cam.fx_right, cam.fy_right, cam.cx_right, cam.cy_right)
         self.baseline = cam.baseline
+        # uint8 camera image -> the float32 image the system reads.
+        self.undistortion_maps = None
+        self._pre_left = self._pre_right = _widen
+        if cam.need_undistortion:
+            h, w = cfg.image_height, cfg.image_width
+            # Built once in float32 on the host and kept on the device: every
+            # device remaps through the same grid, bit for bit.
+            self.undistortion_maps = tuple(
+                undistortion_map(h, w, intr, torch.tensor(dist, dtype=torch.float32)
+                                 ).to(self.device)
+                for intr, dist in ((self.intr_left, (cam.k1, cam.k2, cam.p1, cam.p2)),
+                                   (self.intr_right, (cam.k1_right, cam.k2_right, cam.p1_right,
+                                                      cam.p2_right))))
+            self._pre_left = partial(_widen_remap, self.undistortion_maps[0])
+            self._pre_right = partial(_widen_remap, self.undistortion_maps[1])
         self.fs, self.map, self.loop = init_all(cfg, self.device)
         self.inline_ba = inline_ba
         self._ba = partial(backend_mod.optimize_active_map, intr=self.intr_left, cfg=cfg)
-        self.track_graph = TrackGraph(cfg, self.intr_left, self.device)
+        self.track_graph = TrackGraph(cfg, self.intr_left, self.device, pre_left=self._pre_left)
         # The packed outcome's landing place on the host, and its event.
         if self.device.type == "cuda":
             self._host_outcome = torch.empty(frontend_mod.OUTCOME_SIZE, dtype=torch.float32,
@@ -219,10 +250,10 @@ class StereoSlam:
         """Stereo initialization, synchronous (the JAX facade's too)."""
         frame_idx = self._frame_count
         ts = torch.full((), float(timestamp), dtype=torch.float32, device=self.device)
-        left_f32 = lr_u8[0].to(torch.float32)
+        left_f32 = self._pre_left(lr_u8[0])
         lk_levels = self.cfg.tracking.lk_levels
         pyr_left = build_lk_pyramid(left_f32, lk_levels)
-        pyr_right = build_lk_pyramid(lr_u8[1].to(torch.float32), lk_levels)
+        pyr_right = build_lk_pyramid(self._pre_right(lr_u8[1]), lk_levels)
         fs, m, kf_id, n_lm = frontend_mod.stereo_init_step(
             left_f32, pyr_left, pyr_right, self.fs, self.map, self.intr_left,
             self.intr_right, self.baseline, ts, self.cfg,
@@ -270,7 +301,7 @@ class StereoSlam:
                 ts = torch.full((), float(timestamp), dtype=torch.float32, device=self.device)
                 ba_fn = self._ba if (self.enable_backend and self.inline_ba) else None
                 self.fs, self.map, kf_id = frontend_mod.run_branch(
-                    o, left, lambda: lr_u8[1].to(torch.float32), pyr, self.fs, self.map,
+                    o, left, lambda: self._pre_right(lr_u8[1]), pyr, self.fs, self.map,
                     self.intr_left, self.intr_right, self.baseline, ts, self.cfg, ba_fn=ba_fn)
                 # The branch reads the host anyway: one more read for the
                 # frame's final reference and pose.
@@ -334,7 +365,7 @@ class StereoSlam:
         if kf_id >= 0:
             if self.profiler._current is not None:
                 self.profiler._current.keyframe_id = kf_id
-            self._after_keyframe(entry.lr_u8[0].to(torch.float32), kf_id,
+            self._after_keyframe(self._pre_left(entry.lr_u8[0]), kf_id,
                                  run_ba=self.enable_backend and not self.inline_ba)
 
     # ------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The world-circuit accuracy evaluation (port of ``stereoslam_tpu/eval.py``
-``run_world_eval``).
+"""The world-circuit evaluations (port of ``stereoslam_tpu/eval.py``):
+``run_world_eval`` and the reference-scale ``run_endurance``.
 
 Drive the ray-cast city circuit (``utils/world.py``, exact ground truth) for
 ``laps`` laps at the SHIPPED default thresholds (trained CALC descriptor,
@@ -10,7 +10,13 @@ artifacts.  The record has the JAX package's keys: ``ate_m`` (loop closing
 ON) and ``ate_vo_m`` (the same frames with loop closing OFF), and ``fps`` /
 ``latency_ms_p50`` that exclude the first ``EVAL_WARMUP`` frames.
 
-The evaluation runs on the card unless the caller asks for ``device="cpu"``.
+:func:`run_endurance` drives the same circuit for about 11 laps (4,557
+frames, the scale of the reference's KITTI-00 result) with a landmark table
+small enough that live compaction fires, and records, besides accuracy,
+the frame time at the start and the end of the run and the O(K) stages
+(the detection scan, the full pose graph) at the final map size.
+
+Both evaluations run on the card unless the caller asks for ``device="cpu"``.
 Frames rendered on the device the system runs on are staged from there;
 host frames go through :class:`~stereoslam_tpu_torch.utils.feed.DeviceFeed`.
 """
@@ -216,4 +222,155 @@ def run_world_eval(
             "database_min_size": cfg.loop.database_min_size,
             "id_gap": cfg.loop.id_gap,
         },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Reference-scale endurance evaluation: the reference's saved KITTI-00
+# artifacts cover 4,541 frames / 742 keyframes / 17 loop edges
+# (result/trajectory.txt, result/loopEdges.txt).  About 11 laps of the
+# canonical circuit with a landmark table small enough that compaction fires
+# mid-run, and start-against-end timing of the O(K)-shaped work (the
+# detection scan, PGO).
+
+ENDURANCE_LAPS = 10.8  # ~4,550 frames at the canonical step
+# A table the run outgrows: the JAX run creates about 53k landmarks, so
+# 49,152 rows cross the 90% threshold (44k) mid-run and compaction must fire
+# live, with headroom for what it frees.
+ENDURANCE_MAX_LANDMARKS = 49152
+
+
+def endurance_config(seq, h: int, w: int, max_landmarks: int = ENDURANCE_MAX_LANDMARKS):
+    """The endurance run's configuration: the world camera of ``seq``, the
+    shipped defaults, and a landmark table of ``max_landmarks`` rows."""
+    from stereoslam_tpu_torch.config import CameraConfig, MapConfig, SlamConfig
+
+    return SlamConfig(
+        camera=CameraConfig(
+            fx=seq.fx, fy=seq.fy, cx=seq.cx, cy=seq.cy,
+            fx_right=seq.fx, fy_right=seq.fy, cx_right=seq.cx, cy_right=seq.cy,
+            bf=seq.fx * seq.baseline,
+        ),
+        image_height=h, image_width=w,
+        map=MapConfig(max_landmarks=max_landmarks),
+    )
+
+
+def endurance_pose_graph(m):
+    """The full pose graph over every keyframe row of the map ``m``: the
+    sequential and loop edges, the keyframes of the active window and KF 0
+    fixed (the graph the JAX package's endurance run times at its final
+    size, ``stereoslam_tpu/eval.py:306-321``)."""
+    from stereoslam_tpu_torch.ops.pgo import PoseGraph
+
+    K = m.kf_T_cw.shape[0]
+    kf_ids = torch.arange(K, dtype=torch.int32, device=m.kf_T_cw.device)
+    in_window = (kf_ids[:, None] == m.active_kf[None, :]).any(1) & m.kf_valid
+    return PoseGraph(
+        poses=m.kf_T_cw, vertex_valid=m.kf_valid, fixed=in_window | (kf_ids == 0),
+        edge_i=torch.cat([kf_ids, kf_ids]),
+        edge_j=torch.cat([m.kf_prev.clamp(min=0), m.kf_loop.clamp(min=0)]),
+        edge_meas=torch.cat([m.kf_rel_prev, m.kf_rel_loop]),
+        edge_valid=torch.cat([m.kf_valid & (m.kf_prev >= 0), m.kf_valid & (m.kf_loop >= 0)]),
+    )
+
+
+def _timed_ms(fn, reps: int, dev: torch.device) -> float:
+    """Host milliseconds per call of ``fn`` over ``reps`` calls after one
+    warm-up call, the device synchronized before either clock is read."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_endurance(
+    laps: float = ENDURANCE_LAPS,
+    h: int = WORLD_H,
+    w: int = WORLD_W,
+    step: float = WORLD_STEP,
+    seed: int = WORLD_SEED,
+    seq=None,
+    readback_lag: Optional[int] = None,
+    enable_loop: bool = True,
+    device=None,
+    on_slam: Optional[Callable] = None,
+) -> dict:
+    """Drive ``laps`` laps of the world circuit with loop closing at the
+    shipped thresholds and ``MapConfig(max_landmarks=49152)``, and return the
+    JAX package's endurance record: frames, LOST, ATE, keyframes, loop edges
+    and their ground-truth distances, compactions, FPS, the p50 frame time
+    over the first and the last 800 steady frames, the detection scan and the
+    full-graph PGO at the final size, the parameters and the reference's
+    scale (the fields of ``ENDURANCE.json``).  ``seq`` may carry a
+    pre-rendered sequence of the parameters' frames.  ``device``: the card
+    unless the caller asks for ``"cpu"``.  ``on_slam``: called with the
+    ``StereoSlam`` before it is driven."""
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.ops.pgo import optimize_pose_graph
+    from stereoslam_tpu_torch.utils import world as W
+
+    dev = torch.device(device or "cuda")
+    n = int(W.frames_per_lap(step, WORLD_LENGTH, WORLD_WIDTH) * laps)
+    if seq is None:
+        seq = W.generate_world_sequence(
+            n_frames=n, h=h, w=w, fx=320.0 * w / WORLD_W, seed=seed, step=step,
+            length=WORLD_LENGTH, width=WORLD_WIDTH, device=dev,
+        )
+    cfg = endurance_config(seq, h, w)
+    if not (cfg.loop.similarity_high == 0.94 and cfg.loop.id_gap == 20):
+        raise AssertionError("the shipped loop thresholds changed")
+
+    slam = StereoSlam(cfg, device=dev, enable_backend=True, enable_loop=enable_loop,
+                      readback_lag=readback_lag)
+    if on_slam is not None:
+        on_slam(slam)
+    lost_at, count, fps = _drive(slam, seq, n)
+    ate = _traj_ate(slam, seq)
+
+    n_kf = int(slam.map.n_kf)
+    edges = [(int(a), int(b)) for a, b in slam.loop_edges]
+    fid = slam.map.kf_frame_id[:n_kf].cpu().numpy()
+    edge_gt_dist = _edge_gt_dist(seq.T_cw, fid, edges)
+
+    # Start-against-end amortization: the p50 frame time over the first and
+    # the last 800 steady frames of the same run.
+    lat = np.asarray(slam.frame_latency_ms[EVAL_WARMUP:] or slam.frame_latency_ms or [0.0])
+    head = lat[: min(800, lat.size)]
+    tail = lat[-min(800, lat.size):]
+
+    # The O(K)-shaped stages at the final database and graph size.
+    db_scan_ms = pgo_ms = None
+    if enable_loop and n_kf > 1:
+        lc = slam._loop_closer
+        db_scan_ms = _timed_ms(lambda: lc._detect_impl(slam.loop, n_kf - 1), 20, dev)
+        graph = endurance_pose_graph(slam.map)
+        pgo_ms = _timed_ms(lambda: optimize_pose_graph(
+            graph, gn_iters=cfg.loop.pgo_gn_iters, cg_iters=cfg.loop.pgo_cg_iters), 5, dev)
+
+    # True-revisit edges: ground-truth separation below half the street width.
+    true_edges = sum(1 for d in edge_gt_dist if d < 5.0)
+    return {
+        "frames": count,
+        "lost_at": lost_at,
+        "ate_m": round(ate, 4),
+        "n_kf": n_kf,
+        "kf_rate": round(n_kf / max(count, 1), 4),
+        "loop_edges": edges,
+        "edge_gt_dist_m": [round(d, 2) for d in edge_gt_dist],
+        "true_revisit_edges": true_edges,
+        "n_lm_final": int(slam.map.n_lm),
+        "compactions": slam.compaction_count,
+        "fps": round(fps, 2),
+        "frame_ms_p50_first800": round(float(np.percentile(head, 50)), 2),
+        "frame_ms_p50_last800": round(float(np.percentile(tail, 50)), 2),
+        "db_scan_ms_final": round(db_scan_ms, 3) if db_scan_ms else None,
+        "pgo_ms_final_fullgraph": round(pgo_ms, 2) if pgo_ms else None,
+        "params": {"h": h, "w": w, "step": step, "seed": seed, "frames": n,
+                   "laps": laps, "max_landmarks": cfg.map.max_landmarks},
+        "reference_scale": {"frames": 4541, "n_kf": 742, "loop_edges": 17,
+                            "source": "result/trajectory.txt, result/loopEdges.txt"},
     }

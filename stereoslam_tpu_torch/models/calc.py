@@ -175,13 +175,22 @@ def load_default_params() -> Optional[dict]:
 
 
 class DescriptorModel:
-    """The trained CALC encoder when given Flax-layout ``params``, else the
-    deterministic HOG projection.  :meth:`default` is what the pipeline
-    ships: the JAX package's trained weights when present, else HOG.  The
-    encoder follows the device of the image it is called on."""
+    """The whole-image descriptor of the loop closer:
 
-    def __init__(self, params: Optional[dict] = None):
+    - ``params``: a Flax-layout variables dict, for the trained
+      :class:`CalcEncoder`;
+    - ``caffe_net``: a :class:`~stereoslam_tpu_torch.models.import_caffe.CaffeNetRunner`
+      (use :meth:`from_caffe`), the reference's own deploy.prototxt /
+      calc.caffemodel imported without Caffe;
+    - neither: the deterministic HOG projection.
+
+    :meth:`default` is what the pipeline ships: the JAX package's trained
+    weights when present, else HOG.  The network follows the device of the
+    image it is called on."""
+
+    def __init__(self, params: Optional[dict] = None, caffe_net=None):
         self.params = params
+        self._caffe = caffe_net
         self._encoder = None
         if params is not None:
             from stereoslam_tpu_torch.bridge import calc_params_from_flax
@@ -195,10 +204,17 @@ class DescriptorModel:
 
     @classmethod
     def from_caffe(cls, prototxt: str, caffemodel: str) -> "DescriptorModel":
-        raise NotImplementedError("the Caffe CALC importer is not ported to "
-                                  "stereoslam_tpu_torch yet")
+        """The reference's trained CALC model files, read directly
+        (reference deeplcd.h:33); a missing file raises ``FileNotFoundError``."""
+        from stereoslam_tpu_torch.models.import_caffe import CaffeNetRunner
+
+        return cls(caffe_net=CaffeNetRunner.from_files(prototxt, caffemodel).eval())
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        if self._caffe is not None:
+            if next(self._caffe.buffers(), img).device != img.device:
+                self._caffe = self._caffe.to(img.device)
+            return self._caffe.descriptor(preprocess(img))
         if self._encoder is None:
             return hog_descriptor(img)
         if self._encoder.proj.weight.device != img.device:

@@ -89,9 +89,10 @@ def test_hog_descriptor_matches(frames):
     assert abs(sim_j - sim_p) < 1e-5
 
 
-def test_default_model_loads_the_same_file(frames):
+def test_default_model_loads_the_same_file(frames, tmp_path):
     """``DescriptorModel.default()`` reads the JAX package's shipped file by
-    path and gives the JAX default model's descriptors."""
+    path and gives the JAX default model's descriptors; from_caffe loads the
+    reference's Caffe files as JAX's does."""
     import os
 
     import stereoslam_tpu.models as jmodels
@@ -111,5 +112,19 @@ def test_default_model_loads_the_same_file(frames):
     # Without params the model is the HOG projection, as in JAX.
     np.testing.assert_allclose(pcalc.DescriptorModel()(_t(frames[0])).numpy(),
                                np.asarray(jcalc.hog_descriptor(jnp.asarray(frames[0]))), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        pcalc.DescriptorModel.from_caffe("deploy.prototxt", "calc.caffemodel")
+    # The reference's Caffe files (here the tiny net of tests/test_import_caffe.py)
+    # load through from_caffe, as in JAX; a missing file raises.
+    import _caffe_net
+
+    net_bytes, _, x = _caffe_net.tiny_net(np.random.default_rng(0))
+    (tmp_path / "deploy.prototxt").write_text(_caffe_net.TINY_PROTOTXT)
+    (tmp_path / "calc.caffemodel").write_bytes(net_bytes)
+    pc = pcalc.DescriptorModel.from_caffe(str(tmp_path / "deploy.prototxt"),
+                                          str(tmp_path / "calc.caffemodel"))
+    jc = jcalc.DescriptorModel.from_caffe(str(tmp_path / "deploy.prototxt"),
+                                          str(tmp_path / "calc.caffemodel"))
+    np.testing.assert_allclose(pc._caffe.descriptor(_t(x)).numpy(),
+                               np.asarray(jc._caffe.descriptor(jnp.asarray(x))), atol=1e-5, rtol=0)
+    with pytest.raises(FileNotFoundError):
+        pcalc.DescriptorModel.from_caffe(str(tmp_path / "none.prototxt"),
+                                         str(tmp_path / "calc.caffemodel"))

@@ -194,6 +194,26 @@ def test_viewer_copy_exports_the_same_ply_and_draws(tmp_path, rng):
     assert os.path.getsize(png) > 10_000
 
 
+CAFFE_PARSERS = ("_read_varint", "parse_message", "_packed_floats", "_packed_varints",
+                 "_parse_blob", "_first_int", "_spatial_pair", "LayerSpec", "_parse_layer",
+                 "CaffeNet", "load_caffemodel", "_tokenize_prototxt", "_parse_block",
+                 "parse_prototxt", "_proto_int", "_proto_pair", "_spec_from_prototxt",
+                 "load_prototxt_net", "_caffe_pool_out")
+
+
+@pytest.mark.parametrize("name", CAFFE_PARSERS)
+def test_caffe_parsers_are_copies(name):
+    """The host-side Caffe parsers (protobuf wire format, prototxt) are the
+    JAX package's, character for character."""
+    import inspect
+
+    from stereoslam_tpu.models import import_caffe as jax_caffe
+    from stereoslam_tpu_torch.models import import_caffe as pt_caffe
+
+    assert inspect.getsource(getattr(pt_caffe, name)) == inspect.getsource(getattr(jax_caffe, name))
+    assert pt_caffe._V1_TYPE_NAMES == jax_caffe._V1_TYPE_NAMES
+
+
 def test_native_loader_source_is_a_byte_copy():
     assert (REPO / "stereoslam_tpu_torch/native/dataloader.cpp").read_bytes() == (
         REPO / "stereoslam_tpu/native/dataloader.cpp").read_bytes()
@@ -211,6 +231,7 @@ def test_port_imports_without_jax():
         "import stereoslam_tpu_torch.run, stereoslam_tpu_torch.utils.kitti\n"
         "import stereoslam_tpu_torch.utils.prof, stereoslam_tpu_torch.utils.viewer\n"
         "import stereoslam_tpu_torch.native.dataloader, stereoslam_tpu_torch.parallel.multiseq\n"
+        "import stereoslam_tpu_torch.models.import_caffe\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )

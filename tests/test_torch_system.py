@@ -140,16 +140,40 @@ def test_default_device_is_the_card(seq):
     assert slam.process_frame(seq.left[0], seq.right[0], seq.timestamps[0])
 
 
-def test_unported_options_raise(seq):
-    """Undistortion and the Caffe CALC importer still raise; loop closing
-    itself constructs (and is on by default)."""
+def test_unported_options_raise(seq, tmp_path):
+    """The options that raised before they were ported now construct and
+    run: undistortion (on the CPU, bench.py's k1/k2) and the reference's
+    Caffe CALC files (a CALC-shaped net written by hand), whose descriptor
+    of the first keyframe is the runner's on its preprocessed left image;
+    missing Caffe files raise FileNotFoundError.  Loop closing is on by
+    default."""
+    import _caffe_net
+
+    from stereoslam_tpu_torch.models.calc import preprocess
+
     cfg = make_cfg(seq)
     assert StereoSlam(cfg, device="cpu").enable_loop
-    caffe = cfg.replace(loop=dataclasses.replace(cfg.loop, caffe_prototxt="deploy.prototxt",
-                                                 caffe_weights="calc.caffemodel"))
-    with pytest.raises(NotImplementedError, match="Caffe"):
-        StereoSlam(caffe, device="cpu")
-    assert not StereoSlam(caffe, device="cpu", enable_loop=False).enable_loop
-    undist = cfg.replace(camera=dataclasses.replace(cfg.camera, need_undistortion=True, k1=-0.1))
-    with pytest.raises(NotImplementedError):
-        StereoSlam(undist, device="cpu")
+    proto, model = _caffe_net.write_calc_shaped(str(tmp_path), seed=2)
+    caffe = cfg.replace(loop=dataclasses.replace(cfg.loop, caffe_prototxt=proto,
+                                                 caffe_weights=model))
+    slam = StereoSlam(caffe, device="cpu")
+    runner = slam._loop_closer.model._caffe
+    assert runner is not None
+    for t in range(3):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+    left0 = torch.from_numpy(seq.left[0].astype(np.uint8)).to(torch.float32)
+    want = runner.descriptor(preprocess(left0))
+    assert torch.equal(slam.loop.deep_db[0], want) and want.shape == (1064,)
+    missing = cfg.replace(loop=dataclasses.replace(cfg.loop, caffe_prototxt=proto,
+                                                   caffe_weights=str(tmp_path / "none")))
+    with pytest.raises(FileNotFoundError):
+        StereoSlam(missing, device="cpu")
+    assert not StereoSlam(missing, device="cpu", enable_loop=False).enable_loop
+    undist = cfg.replace(camera=dataclasses.replace(cfg.camera, need_undistortion=True,
+                                                    k1=-0.28, k2=0.07, k1_right=-0.28,
+                                                    k2_right=0.07))
+    slam = StereoSlam(undist, device="cpu", enable_loop=False)
+    assert [tuple(m.shape) for m in slam.undistortion_maps] == [seq.left.shape[1:] + (2,)] * 2
+    for t in range(4):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t]), f"LOST at {t}"
+    assert int(slam.map.n_lm) > 0
