@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # the full run: VO, CLI, undistortion, CALC, Caffe,
-                                         # loop-closing, world, endurance and multi-sequence
+    python3 chip_smoke.py                # the full run: VO, CLI, undistortion, CALC, CALC
+                                         # training, Caffe, loop-closing, world, endurance
+                                         # and multi-sequence
     python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
 
 Phases, each printing its lines and stopping the run with a non-zero exit on
@@ -65,14 +66,29 @@ failure:
              and the HOG descriptor on one 376x1241 keyframe image, on the
              card against the same module on the CPU (float32, TF32 off),
              with each one's device time per call.
-9. caffe   — a CALC-shaped Caffe net written from a seed (deploy.prototxt and
+9. train   — CALC training (``models/train_calc.py``) at CALC's widths and
+             the default run's batch (64), geometries and loss settings:
+             (a) the shipped weights through the port on the card against
+             ``tests/test_descriptor_precision.py``'s five bars (seed 555,
+             120x188), and at the held-out seed 999 at both geometries
+             beside the JAX run's medians; (b) one ``pair_loss`` step from
+             the same init, batch and augmentation on the card against the
+             CPU (loss terms, every gradient); (c) ``train_encoder_pairs``
+             on 2 x 128 card-rendered pairs for 300 steps with the seed-777
+             probe every 100: finite, the total down to 0.8x, the best probe
+             above the untrained encoder's, unit descriptors, held-out
+             revisits above different places by 0.05; ms a step, pairs a
+             second and the device busy share over 50 steps; (d) the
+             float16 npz round trip into ``DescriptorModel``.  The full run
+             is ``scripts/torch_train_calc_default.py``'s.
+10. caffe  — a CALC-shaped Caffe net written from a seed (deploy.prototxt and
              calc.caffemodel: 1x1x120x160 input, Convolution/ReLU/Pooling/LRN,
              a 1064-value last blob): the importer's runner on the card
              against the CPU; ``StereoSlam`` with the files in
              ``cfg.loop.caffe_*`` over 40 of phase main's frames, loop
              closing on, every stored keyframe descriptor equal to the runner
              on that keyframe's preprocessed left image.
-10. loop   — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
+11. loop   — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
              descriptor over a closed blob-world circuit at KITTI geometry,
              with the full-size state (400 features x 8 ORB levels, 1536
              keyframe rows, 131,072 landmark rows); checks no LOST, a true
@@ -80,7 +96,7 @@ failure:
              through ``lk_pyramid``, and that the run repeats the port's
              known one; prints FPS, per-stage keyframe times and PGO
              iterations.
-11. world  — the canonical 548-frame world circuit of ``run_world_eval``
+12. world  — the canonical 548-frame world circuit of ``run_world_eval``
              (240x376, trained CALC at the shipped 0.94/0.92 thresholds):
              renders it on the card and holds four frames of each camera to
              the CPU render; checks ``DeviceFeed`` over 50 host frames; runs
@@ -95,7 +111,7 @@ failure:
              checkpoint into a fresh ``StereoSlam``; prints FPS, p50, ATE,
              edges, per-stage keyframe times, and the refused loop
              verifications by the guard that refused them.
-12. endurance — (a) ``run_endurance(device="cuda")`` cut from 10.8 laps to 2
+13. endurance — (a) ``run_endurance(device="cuda")`` cut from 10.8 laps to 2
              (843 frames): tracking at least as far as the JAX package's CPU
              run of the same frames (LOST at frame 678), every loop edge a
              true revisit with an id gap >= 20, FPS, p50 over the first and
@@ -106,7 +122,7 @@ failure:
              after each compaction replayed bit for bit as the eager
              ``track_frame``, no live track left on a freed row.  The full
              run is ``scripts/torch_endurance.py``'s.
-13. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
+14. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
              ``MultiSeqVO``): (a) one batched ``lk_pyramid`` launch at bench.py
              Phase M's shapes (B=8, 240x376, 3 levels, 400 slots a sequence)
              against 8 single launches (bit for bit), with a mixed gate
@@ -125,7 +141,7 @@ failure:
              (``scripts/torch_multiseq_world.py``: two world circuits loop ON
              and OFF): no LOST, every edge a true revisit, ATE ON <= OFF a
              sequence, printed beside the TPU record with the refusals.
-14. profile — with ``--profile N``: device busy share, the top kernels, the
+15. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame
              for keyframe, replenish and keyframe-free frames.
 
@@ -1183,6 +1199,237 @@ def phase_calc(dev, img_np, card: str) -> None:
         if not (err <= CALC_MAX_ABS and dot >= CALC_MIN_DOT and got.shape == (1064,)):
             fail("calc", "card vs CPU",
                  f"{name} on the card disagrees with the CPU (max |d| {err:.2e}, dot {dot:.7f})")
+
+
+# Phase train: CALC training (models/train_calc.py) on the card, at CALC's
+# published widths and scripts/torch_train_calc_default.py's batch, corpus
+# geometries, probe and loss settings, cut in depth (steps and places).
+TRAIN_BATCH = 64
+TRAIN_STEPS = 300
+TRAIN_PLACES = 128                 # pairs per geometry (the full run: 1024)
+TRAIN_SCENES = 8                   # scenes per geometry (the full run: 32)
+TRAIN_PROBE_EVERY = 100
+TRAIN_LOG_EVERY = 50
+TRAIN_TIMED_STEPS = 50
+TRAIN_LOSS_RTOL = 1e-4             # card vs CPU, total / contrast / hinge
+TRAIN_RECON_RTOL = 1e-2            # the bfloat16 decoder's reconstruction
+TRAIN_GRAD_COS = 0.9999            # encoder gradients, card vs CPU
+TRAIN_DEC_GRAD_COS = 0.999         # bfloat16 decoder gradients
+TRAIN_MAX_DROP = 0.8               # last logged total <= 0.8x the first
+TRAIN_SEPARATION = 0.05            # mean revisit > mean different place + this
+TRAIN_NPZ_DOT = 0.9999             # float16 npz round trip, per descriptor
+TRAIN_LOSS_KW = dict(margin_pos=0.97)
+# The JAX package's trained weights' held-out medians (README, the JAX run
+# of scripts/train_calc_default.py).
+JAX_RUN_MEDIANS = {"240x376": 0.978, "120x188": 0.977}
+
+
+def train_script():
+    """scripts/torch_train_calc_default.py: the operating point, the bars
+    and the probe of the full training run."""
+    path = Path(__file__).resolve().parent / "scripts" / "torch_train_calc_default.py"
+    spec = importlib.util.spec_from_file_location("torch_train_calc_default", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def check_train_step(dev, tc, a, b, card: str) -> None:
+    """(b) One pair_loss step from the same init (seed 0), batch and Augment
+    on the card and on the CPU: the loss terms and every gradient."""
+    aug = tc.draw_augment(torch.Generator().manual_seed(0), len(a))
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        enc, dec = tc.init_modules(0, d)
+        total, aux = tc.pair_loss(enc, dec, a.to(d), b.to(d), aug.to(d), **TRAIN_LOSS_KW)
+        total.backward()
+        grads = {f"enc.{k}": p.grad.cpu() for k, p in enc.named_parameters()}
+        grads.update({f"dec.{k}": p.grad.cpu() for k, p in dec.named_parameters()})
+        out[name] = ([float(x.detach()) for x in (total, *aux)], grads)
+    (got, g_card), (ref, g_cpu) = out["card"], out["cpu"]
+    rel = [_rel(x, y) for x, y in zip(got, ref)]
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        g_card[k].double().reshape(1, -1), g_cpu[k].double().reshape(1, -1))) for k in g_cpu}
+    enc_cos = min(v for k, v in cos.items() if k.startswith("enc."))
+    dec_cos = min(v for k, v in cos.items() if k.startswith("dec."))
+    print(f"train: (b) one step, batch {len(a)}, card vs CPU: total {got[0]:.6f} / {ref[0]:.6f}, "
+          f"recon {got[1]:.6f} / {ref[1]:.6f}, contrast {got[2]:.6f} / {ref[2]:.6f}, hinge "
+          f"{got[3]:.6f} / {ref[3]:.6f} (relative {', '.join(f'{r:.2e}' for r in rel)}); gradient "
+          f"cosine min encoder {enc_cos:.7f}, decoder {dec_cos:.7f} [{card}]", flush=True)
+    if not (rel[0] <= TRAIN_LOSS_RTOL + TRAIN_RECON_RTOL * abs(ref[1] / ref[0])
+            and rel[1] <= TRAIN_RECON_RTOL and rel[2] <= TRAIN_LOSS_RTOL
+            and rel[3] <= TRAIN_LOSS_RTOL):
+        fail("train", "step card vs CPU", f"loss terms differ: card {got}, CPU {ref}")
+    if not (enc_cos >= TRAIN_GRAD_COS and dec_cos >= TRAIN_DEC_GRAD_COS):
+        fail("train", "gradients card vs CPU", f"gradient cosines {cos}")
+
+
+def time_train_steps(dev, tc, corpA, corpB, card: str) -> dict:
+    """ms a training step, pairs a second and the device busy share over
+    TRAIN_TIMED_STEPS steps of the loop's own step (batch 64: 192 encoder
+    views, the decoder, AdamW), after 3 warm-up steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    enc, dec = tc.init_modules(0, dev)
+    opt = torch.optim.AdamW(list(enc.parameters()) + list(dec.parameters()), lr=1e-3,
+                            weight_decay=3e-4)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(np.stack([rng.choice(len(corpA), TRAIN_BATCH, replace=False)
+                                     for _ in range(3 + 2 * TRAIN_TIMED_STEPS)])).to(dev)
+
+    def step(i):
+        a, b = corpA.index_select(0, idx[i]), corpB.index_select(0, idx[i])
+        tc.pair_step(enc, dec, opt, a, b, tc.draw_augment(gen, TRAIN_BATCH), **TRAIN_LOSS_KW)
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 3 + TRAIN_TIMED_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3 + TRAIN_TIMED_STEPS, 3 + 2 * TRAIN_TIMED_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    ms = wall / TRAIN_TIMED_STEPS * 1e3
+    print(f"train: {TRAIN_TIMED_STEPS} steps of batch {TRAIN_BATCH} pairs: {ms:.2f} ms a step, "
+          f"{TRAIN_BATCH * 1e3 / ms:.1f} pairs/s ({3 * TRAIN_BATCH * 1e3 / ms:.1f} encoder views/s); "
+          f"under the profiler {wall_p * 1e3 / TRAIN_TIMED_STEPS:.2f} ms a step, device kernel time "
+          f"{dev_s * 1e3 / TRAIN_TIMED_STEPS:.2f} ms a step, device busy {dev_s / wall_p:.1%}, "
+          f"{sum(e.count for e in kern) / TRAIN_TIMED_STEPS:.0f} kernel launches a step; top "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / TRAIN_TIMED_STEPS:.2f} ms"
+                      for e in top) + f" [{card}]", flush=True)
+    return {"ms_per_step": ms, "busy": dev_s / wall_p}
+
+
+def phase_train(dev, card: str) -> None:
+    """CALC training on the card: (a) the shipped weights' operating point
+    through the port, (b) one step card vs CPU, (c) a training run cut in
+    depth, timed, (d) the npz round trip."""
+    from stereoslam_tpu_torch.models import calc
+    from stereoslam_tpu_torch.models import train_calc as tc
+
+    script = train_script()
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        t_part.append(time.perf_counter())
+        print(f"train: {name} took {t_part[-1] - t_part[-2]:.1f} s", flush=True)
+
+    # (a) The shipped weights on tests/test_descriptor_precision.py's set
+    # (seed 555, 120x188) against its bars, and on the held-out set of
+    # evaluate_operating_point (seed 999) at both geometries.
+    shipped = calc.DescriptorModel.default()
+    if shipped.params is None:
+        fail("train", "weights", f"the shipped CALC weights were not found at {calc.DEFAULT_WEIGHTS}")
+    A_ci, B_ci = tc.render_corpus_pairs(n_places=48, n_scenes=4, h=120, w=188, fx=160.0, seed=555,
+                                        device=dev)
+    op = script.similarity_stats(script.encode(shipped, A_ci), script.encode(shipped, B_ci))
+    print(f"train: (a) shipped weights on the card, seed 555 at 120x188 ({op['n_pairs']} pairs): "
+          f"revisit median {op['pos_median']:.4f}, >= 0.94 {op['pos_ge_high']:.3f}; different "
+          f"place median {op['neg_median']:.4f}, >= 0.92 {op['neg_ge_low']:.4f}; anchors with <= 3 "
+          f"suspects {op['suspects_le3']:.3f} [{card}]", flush=True)
+    missed = script.bars_missed(op)
+    if missed:
+        fail("train", "shipped operating point",
+             f"tests/test_descriptor_precision.py's bars missed on the card: {missed}")
+    for hw, (h, w, fx) in (("240x376", (240, 376, 320.0)), ("120x188", (120, 188, 160.0))):
+        op = script.evaluate_operating_point(shipped, seed=999, h=h, w=w, fx=fx, device=dev)
+        print(f"train: (a) shipped weights, held-out seed 999 at {hw} ({op['n_pairs']} pairs): "
+              f"revisit median {op['pos_median']:.4f} (the JAX run: {JAX_RUN_MEDIANS[hw]}), p10 "
+              f"{op['pos_p10']:.4f}, >= 0.94 {op['pos_ge_high']:.3f}; different place median "
+              f"{op['neg_median']:.4f}, p99 {op['neg_p99']:.4f}, >= 0.92 {op['neg_ge_low']:.4f}",
+              flush=True)
+    part("(a)")
+
+    # The cut corpus: scripts/torch_train_calc_default.py's two geometries.
+    A_hi, B_hi = tc.render_corpus_pairs(n_places=TRAIN_PLACES, n_scenes=TRAIN_SCENES, seed=0,
+                                        h=240, w=376, fx=320.0, device=dev)
+    A_lo, B_lo = tc.render_corpus_pairs(n_places=TRAIN_PLACES, n_scenes=TRAIN_SCENES, seed=1,
+                                        h=120, w=188, fx=160.0, device=dev)
+    corpA = tc.preprocess_corpus([A_hi, A_lo], dev)
+    corpB = tc.preprocess_corpus([B_hi, B_lo], dev)
+    part(f"rendering 2 x {TRAIN_PLACES} pairs")
+
+    # (b) One step, card vs CPU, on a batch of the corpus.
+    sel = torch.from_numpy(np.random.default_rng(0).choice(len(corpA), TRAIN_BATCH,
+                                                           replace=False)).to(dev)
+    check_train_step(dev, tc, corpA.index_select(0, sel).cpu(), corpB.index_select(0, sel).cpu(),
+                     card)
+    part("(b)")
+
+    # (c) The training run, cut in depth.
+    scores = []
+    probe_fn = script.make_probe(dev, scores)
+    enc0, _ = tc.init_modules(0, dev)
+    with torch.no_grad():
+        score0 = probe_fn(enc0)
+    scores.clear()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist = tc.train_encoder_pairs(
+        [A_hi, A_lo], [B_hi, B_lo], steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=0,
+        weight_decay=3e-4, log_every=TRAIN_LOG_EVERY, probe_fn=probe_fn,
+        probe_every=TRAIN_PROBE_EVERY, device=dev, **TRAIN_LOSS_KW)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    lk_launches = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters()}
+    model = calc.DescriptorModel(params)
+    za, zb = script.encode(model, A_ci), script.encode(model, B_ci)
+    norms = torch.linalg.norm(za, dim=1)
+    op = script.similarity_stats(za, zb)
+    h = np.asarray(hist)
+    print(f"train: (c) train_encoder_pairs on 2 x {TRAIN_PLACES} card-rendered pairs, batch "
+          f"{TRAIN_BATCH}, {TRAIN_STEPS} steps in {train_s:.1f} s (probes included); total "
+          f"{h[0, 0]:.4f} -> {h[-1, 0]:.4f} (recon {h[0, 1]:.4f} -> {h[-1, 1]:.4f}, contrast "
+          f"{h[0, 2]:.4f} -> {h[-1, 2]:.4f}, hinge {h[0, 3]:.4f} -> {h[-1, 3]:.4f}); probe "
+          f"{', '.join(f'{s:.4f}' for s in scores)} against the untrained {score0:.4f}; held-out "
+          f"seed 555: revisit mean {op['pos_mean']:.4f}, median {op['pos_median']:.4f}, different "
+          f"place mean {op['neg_mean']:.4f}; kernel launches on this path {lk_launches} [{card}]",
+          flush=True)
+    if not np.isfinite(h).all():
+        fail("train", "finite", f"a logged loss is not finite: {hist}")
+    if not h[-1, 0] <= TRAIN_MAX_DROP * h[0, 0]:
+        fail("train", "loss", f"last logged total {h[-1, 0]:.4f} above {TRAIN_MAX_DROP}x the first "
+             f"{h[0, 0]:.4f}")
+    if not (scores and max(scores) > score0):
+        fail("train", "probe", f"best probe {max(scores, default=float('nan')):.4f} not above the "
+             f"untrained encoder's {score0:.4f}")
+    if not float((norms - 1).abs().max()) <= 1e-3:
+        fail("train", "unit norm", f"descriptor norms {float(norms.min())}..{float(norms.max())}")
+    if not op["pos_mean"] > op["neg_mean"] + TRAIN_SEPARATION:
+        fail("train", "separation", f"held-out revisit mean {op['pos_mean']:.4f} not above the "
+             f"different-place mean {op['neg_mean']:.4f} + {TRAIN_SEPARATION}")
+    part("(c)")
+    time_train_steps(dev, tc, corpA, corpB, card)
+    part("(c), the timed steps")
+
+    # (d) The float16 npz both packages load, back into a DescriptorModel.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        path = os.path.join(d, "calc_weights.npz")
+        calc.save_params_npz(path, params)
+        loaded = calc.DescriptorModel(calc.load_params_npz(path))
+        zl = script.encode(loaded, A_ci)
+    dot = float((zl * za).sum(1).min())
+    print(f"train: (d) npz round trip: min descriptor dot {dot:.6f} against the in-memory encoder "
+          f"on {len(za)} images", flush=True)
+    if not dot >= TRAIN_NPZ_DOT:
+        fail("train", "npz round trip", f"min dot {dot:.6f} < {TRAIN_NPZ_DOT}")
 
 
 def phase_loop(dev, card: str) -> None:
@@ -2489,6 +2736,7 @@ def main() -> None:
     work.cleanup()
     undistort_launches = phase("undistort", phase_undistort, dev, seq, card)
     phase("calc", phase_calc, dev, seq.left[0], card)
+    phase("train", phase_train, dev, card)
     phase("caffe", phase_caffe, dev, seq, card)
     phase("loop", phase_loop, dev, card)
     worst_world = phase("world", phase_world, dev, card)

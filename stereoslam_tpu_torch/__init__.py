@@ -11,7 +11,8 @@ counterpart is easy to find:
               pose-only LM, FAST, Schur-complement BA; for loop closing,
               orientation, BRIEF, pyramid ORB, Hamming matching, P3P,
               PnP-RANSAC and pose-graph optimization.
-- ``models/`` the CALC encoder and the HOG place descriptor.
+- ``models/`` the CALC encoder and the HOG place descriptor, the Caffe
+              importer, and CALC training (``train_calc``).
 - ``core/``   state containers, the frontend frame step, backend BA, landmark
               compaction, the loop closer and the ``StereoSlam`` facade (on
               the card unless the caller passes ``device="cpu"``).
@@ -33,5 +34,8 @@ import torch as _torch
 # matmul precision to "highest" for the same reason; pin full fp32 here.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# The CALC training head computes in bfloat16 with float32 accumulation, as
+# the JAX package's; cuBLAS may otherwise reduce split sums in bfloat16.
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from stereoslam_tpu_torch.config import SlamConfig  # noqa: E402,F401

@@ -12,7 +12,9 @@ sequence.  Keys are the JAX package's field names; a
 port's int32 words by reinterpreting their bits (``.view``), never by a
 cast.  The main path uses :func:`calc_params_from_flax`, to load the
 shipped CALC weights, and checkpoints (``utils/checkpoint.py``) go through
-the state converters.
+the state converters; CALC training (``models/train_calc.py``) returns its
+encoder through :func:`calc_params_to_flax` and takes a Flax init through
+the encoder and decoder converters.
 """
 
 from __future__ import annotations
@@ -88,6 +90,49 @@ def calc_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out["proj.weight"] = torch.from_numpy(
         np.ascontiguousarray(np.asarray(p["proj"]["kernel"], np.float32).T))
     return out
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def calc_params_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`calc_params_from_flax`: a ``CalcEncoder`` state
+    dict (any device) -> the Flax variables dict ``{"params": {...}}`` with
+    float32 numpy leaves, which ``DescriptorModel``, ``save_params_npz`` and
+    the JAX package all take."""
+    p: Dict[str, Any] = {}
+    for name in ("conv1", "conv2", "conv3"):
+        p[name] = {"kernel": np.ascontiguousarray(
+                       _numpy(state_dict[f"{name}.weight"]).astype(np.float32).transpose(2, 3, 1, 0)),
+                   "bias": _numpy(state_dict[f"{name}.bias"]).astype(np.float32).copy()}
+    p["proj"] = {"kernel": np.ascontiguousarray(_numpy(state_dict["proj.weight"]).astype(np.float32).T)}
+    return {"params": p}
+
+
+# The training head's two Dense layers, by the names Flax gives them.
+_DECODER_LAYERS = (("Dense_0", "dense0"), ("Dense_1", "dense1"))
+
+
+def decoder_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``train_calc._Decoder`` variables -> the port's
+    ``_Decoder`` state dict: each (in, out) Dense kernel becomes the (out, in)
+    ``Linear`` weight."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, torch.Tensor] = {}
+    for flax_name, name in _DECODER_LAYERS:
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p[flax_name]["kernel"], np.float32).T))
+        out[f"{name}.bias"] = torch.from_numpy(np.asarray(p[flax_name]["bias"], np.float32).copy())
+    return out
+
+
+def decoder_params_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`decoder_params_from_flax`, float32 numpy leaves."""
+    return {"params": {flax_name: {
+        "kernel": np.ascontiguousarray(_numpy(state_dict[f"{name}.weight"]).astype(np.float32).T),
+        "bias": _numpy(state_dict[f"{name}.bias"]).astype(np.float32).copy()}
+        for flax_name, name in _DECODER_LAYERS}}
 
 
 def stack_numpy(trees: Sequence[Any]) -> Dict[str, Any]:

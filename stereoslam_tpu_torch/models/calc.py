@@ -57,6 +57,24 @@ def _same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+# The std of a unit normal truncated to [-2, 2]: Flax's ``lecun_normal``
+# divides by it so that the truncated draw keeps variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax's default kernel init in place: a normal truncated at two of its
+    standard deviations, with std ``1 / sqrt(fan_in) / 0.8796`` (so the
+    values' own std is ``1 / sqrt(fan_in)``), drawn on the CPU from
+    ``generator`` so that a seed gives the same weights on any device."""
+    draw = torch.empty(weight.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        weight.copy_(draw * (1.0 / math.sqrt(fan_in) / _TRUNC_STD))
+    return weight
+
+
 def _out_hw(hw: Tuple[int, int]) -> Tuple[int, int]:
     """Spatial size after the two stride-2 'SAME' convolutions."""
     def half(n: int) -> int:
@@ -76,6 +94,15 @@ class CalcEncoder(nn.Module):
         self.conv3 = nn.Conv2d(128, 4, 3, stride=1)
         oh, ow = _out_hw(input_hw)
         self.proj = nn.Linear(oh * ow * 4, DESCRIPTOR_DIM, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> "CalcEncoder":
+        """Flax's init of the same module: ``lecun_normal`` kernels (fan-in
+        kh * kw * in for a convolution), zero biases; layers drawn in order."""
+        for conv in (self.conv1, self.conv2, self.conv3):
+            lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
+            nn.init.zeros_(conv.bias)
+        lecun_normal_(self.proj.weight, self.proj.in_features, generator)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(H, W) or (B, H, W) float32 -> (1064,) or (B, 1064) unit vectors."""
@@ -118,12 +145,14 @@ def hog_features(img_pre: torch.Tensor) -> torch.Tensor:
     """Smoothed orientation-channel HOG over the (120, 160) input: gradient
     energy soft-assigned to 8 unsigned-orientation channels, each channel
     Gaussian-smoothed, average-pooled to 8x10 cells, L2-normalized per cell.
-    Returns the (640,) feature in (cell row, cell column, bin) order."""
-    h, w = img_pre.shape
-    zc = torch.zeros_like(img_pre[:, :1])
-    zr = torch.zeros_like(img_pre[:1, :])
-    gx = torch.cat([zc, (img_pre[:, 2:] - img_pre[:, :-2]) * 0.5, zc], dim=1)
-    gy = torch.cat([zr, (img_pre[2:, :] - img_pre[:-2, :]) * 0.5, zr], dim=0)
+    Returns the (640,) feature in (cell row, cell column, bin) order; leading
+    dims of ``img_pre`` are a batch."""
+    h, w = img_pre.shape[-2:]
+    lead = img_pre.shape[:-2]
+    zc = torch.zeros_like(img_pre[..., :1])
+    zr = torch.zeros_like(img_pre[..., :1, :])
+    gx = torch.cat([zc, (img_pre[..., 2:] - img_pre[..., :-2]) * 0.5, zc], dim=-1)
+    gy = torch.cat([zr, (img_pre[..., 2:, :] - img_pre[..., :-2, :]) * 0.5, zr], dim=-2)
     mag = torch.sqrt(gx * gx + gy * gy + 1e-12)
     ang = torch.remainder(torch.atan2(gy, gx), math.pi)       # unsigned, [0, pi)
     pos = ang / math.pi * _N_BINS
@@ -134,13 +163,14 @@ def hog_features(img_pre: torch.Tensor) -> torch.Tensor:
     bins = torch.arange(_N_BINS, device=img_pre.device)
     channels = mag[..., None] * ((b0[..., None] == bins) * (1.0 - w1)[..., None]
                                  + (b1[..., None] == bins) * w1[..., None])
-    smoothed = gaussian_blur(channels.permute(2, 0, 1), sigma=_SMOOTH_SIGMA, radius=9)
+    smoothed = gaussian_blur(channels.movedim(-1, -3), sigma=_SMOOTH_SIGMA, radius=9)
     ch, cw = _POOL, _POOL * w // h
     ph, pw = h // ch, w // cw
-    pooled = smoothed[:, : ch * ph, : cw * pw].reshape(_N_BINS, ch, ph, cw, pw).mean(dim=(2, 4))
-    pooled = pooled.permute(1, 2, 0)                            # (ch, cw, bins)
+    pooled = smoothed[..., : ch * ph, : cw * pw].reshape(
+        lead + (_N_BINS, ch, ph, cw, pw)).mean(dim=(-3, -1))
+    pooled = pooled.movedim(-3, -1)                             # (..., ch, cw, bins)
     pooled = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-6)
-    return pooled.reshape(-1)
+    return pooled.reshape(lead + (-1,))
 
 
 def hog_descriptor(img: torch.Tensor) -> torch.Tensor:
@@ -166,6 +196,24 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key].astype(np.float32)
     return out
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Write a Flax-layout variables dict (nested, numpy or torch leaves) as
+    the flat "a/b/kernel" float16 npz that both packages' ``load_params_npz``
+    read (the layout of the shipped ``calc_weights.npz``)."""
+    flat: dict = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+                flat["/".join(prefix + (k,))] = np.asarray(v, np.float16)
+
+    walk(params, ())
+    np.savez_compressed(path, **flat)
 
 
 @functools.lru_cache(maxsize=1)

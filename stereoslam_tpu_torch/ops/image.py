@@ -77,9 +77,9 @@ def _resize_weights(n_out: int, n_in: int, device) -> torch.Tensor:
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of an (H, W) image as two matmuls with the separable
-    two-tap weight matrices."""
+    two-tap weight matrices; leading dims of ``img`` are a batch."""
     h2, w2 = shape
-    h, w = img.shape
+    h, w = img.shape[-2:]
     Wh = _resize_weights(h2, h, img.device)   # (h, h2)
     Ww = _resize_weights(w2, w, img.device)   # (w, w2)
     return (Wh.T @ img) @ Ww
@@ -127,8 +127,9 @@ def build_lk_pyramid(img: torch.Tensor, n_levels: int) -> Tuple[torch.Tensor, ..
 
 def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Bilinear interpolation of ``img`` (H, W) at float (x, y) coordinates
-    ``xy`` (..., 2); coordinates are clamped to [0, size - 1.001]."""
-    h, w = img.shape
+    ``xy`` (..., 2); coordinates are clamped to [0, size - 1.001].  A batch
+    of images (B, H, W) takes coordinates (B, ..., 2), each image its own."""
+    h, w = img.shape[-2:]
     x = torch.clamp(xy[..., 0], 0.0, w - 1.001)
     y = torch.clamp(xy[..., 1], 0.0, h - 1.001)
     x0f, y0f = torch.floor(x), torch.floor(y)
@@ -136,6 +137,10 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     x0, y0 = x0f.long(), y0f.long()
     x1 = torch.clamp(x0 + 1, max=w - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
+    if img.dim() == 3:   # image b's pixels start at b * h * w of the flat view
+        base = (torch.arange(img.shape[0], device=img.device) * (h * w)).reshape(
+            (-1,) + (1,) * (x0.dim() - 1))
+        x0, x1 = x0 + base, x1 + base
     flat = img.reshape(-1)
     Ia = flat[y0 * w + x0]
     Ib = flat[y0 * w + x1]

@@ -214,6 +214,21 @@ def test_caffe_parsers_are_copies(name):
     assert pt_caffe._V1_TYPE_NAMES == jax_caffe._V1_TYPE_NAMES
 
 
+def test_jittered_pose_is_a_copy():
+    """The corpus renderer's viewpoint jitter is the JAX package's function,
+    character for character, and draws the same poses from the same rng."""
+    import inspect
+
+    from stereoslam_tpu.models import train_calc as jax_train
+    from stereoslam_tpu_torch.models import train_calc as pt_train
+
+    assert inspect.getsource(pt_train._jittered_pose) == inspect.getsource(jax_train._jittered_pose)
+    T = np.eye(4)
+    T[:3, 3] = (3.0, 0.0, -7.0)
+    np.testing.assert_array_equal(pt_train._jittered_pose(T, np.random.default_rng(4)),
+                                  jax_train._jittered_pose(T, np.random.default_rng(4)))
+
+
 def test_native_loader_source_is_a_byte_copy():
     assert (REPO / "stereoslam_tpu_torch/native/dataloader.cpp").read_bytes() == (
         REPO / "stereoslam_tpu/native/dataloader.cpp").read_bytes()
@@ -231,7 +246,10 @@ def test_port_imports_without_jax():
         "import stereoslam_tpu_torch.run, stereoslam_tpu_torch.utils.kitti\n"
         "import stereoslam_tpu_torch.utils.prof, stereoslam_tpu_torch.utils.viewer\n"
         "import stereoslam_tpu_torch.native.dataloader, stereoslam_tpu_torch.parallel.multiseq\n"
-        "import stereoslam_tpu_torch.models.import_caffe\n"
+        "import stereoslam_tpu_torch.models.import_caffe, stereoslam_tpu_torch.models.train_calc\n"
+        "import importlib.util as u\n"
+        "spec = u.spec_from_file_location('train_default', 'scripts/torch_train_calc_default.py')\n"
+        "spec.loader.exec_module(u.module_from_spec(spec))\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )

@@ -520,3 +520,31 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     for x, y in zip(a.keyframe_trajectory(), b.keyframe_trajectory()):
         assert np.array_equal(x, y)
     assert a.loop_edges == b.loop_edges
+
+
+def test_calc_training_step_on_card_matches_cpu(dev):
+    """One step of CALC training's pair loss from the same init (seed 0),
+    batch and augmentation on the card and on the CPU: the loss terms within
+    1e-4 relative (the bfloat16 decoder's reconstruction within 1e-2), every
+    encoder gradient at cosine >= 0.9999 and decoder gradient at >= 0.999."""
+    from stereoslam_tpu_torch.models import train_calc as tc
+
+    A, B = tc.render_corpus_pairs(n_places=16, n_scenes=2, h=120, w=188, fx=160.0, seed=3,
+                                  device="cpu")
+    a, b = tc.preprocess_corpus(A, "cpu"), tc.preprocess_corpus(B, "cpu")
+    aug = tc.draw_augment(torch.Generator().manual_seed(0), len(a))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        enc, dec = tc.init_modules(0, d)
+        total, aux = tc.pair_loss(enc, dec, a.to(d), b.to(d), aug.to(d), margin_pos=0.97)
+        total.backward()
+        grads = {k: p.grad.cpu().double().ravel()
+                 for k, p in [*enc.named_parameters(), *dec.named_parameters()]}
+        out.append(([float(x.detach()) for x in (total, *aux)], grads))
+    (got, g_card), (ref, g_cpu) = out
+    for i, tol in ((1, 1e-2), (2, 1e-4), (3, 1e-4)):
+        assert abs(got[i] - ref[i]) <= tol * abs(ref[i]), (i, got, ref)
+    assert abs(got[0] - ref[0]) <= 1e-4 * abs(ref[0]) + 1e-2 * abs(ref[1])
+    for k, g in g_cpu.items():
+        cos = float(g_card[k] @ g / (g_card[k].norm() * g.norm()))
+        assert cos >= (0.999 if k.startswith("dense") else 0.9999), (k, cos)
