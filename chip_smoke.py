@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # the full run: VO, CLI, undistortion, CALC, CALC
-                                         # training, Caffe, loop-closing, world, endurance
-                                         # and multi-sequence
+                                         # training, Caffe, loop-closing, world, endurance,
+                                         # multi-sequence and multi-device
     python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
 
 Phases, each printing its lines and stopping the run with a non-zero exit on
@@ -141,7 +141,24 @@ failure:
              (``scripts/torch_multiseq_world.py``: two world circuits loop ON
              and OFF): no LOST, every edge a true revisit, ATE ON <= OFF a
              sequence, printed beside the TPU record with the refusals.
-15. profile — with ``--profile N``: device busy share, the top kernels, the
+15. dist   — multi-device (``parallel/``): (a) one rank on NCCL (a mesh of the
+             card alone): the sharded descriptor search over the full
+             1536x1064 database against the dense scan (equal id, score and
+             count), the sharded PGO on a graph of the endurance run's size
+             (195 vertices in 1536 rows, 3 GN x 512 CG) against
+             ``optimize_pose_graph(cg_rtol=1e-12, gn_xtol=-1)`` bit for bit,
+             the sharded BA at the window's shapes (W=7, N=400) against the
+             truth, each op's time; (b) two Gloo ranks on the one card, in
+             processes of their own, on the same inputs, held to (a) within
+             the CPU tests' tolerances; (c) ``StereoSlam(mesh=make_mesh())``
+             over phase loop's circuit (the BA at retire): no LOST, true
+             edges with an id gap >= 20, ATE, ``lk_pyramid`` on every tracked
+             frame and no per-level launch, the pinned run; the correction
+             at the last edge on the final state through the sharded PGO
+             (30 GN x 512 CG in full) against the dense one, timed; (d) ``MultiSeqVO(mesh=make_mesh(dp=1))``
+             at Phase M: every sequence as phase multiseq's pinned run, one
+             graph replay a step (the step's NCCL sum inside the graph).
+16. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame
              for keyframe, replenish and keyframe-free frames.
 
@@ -157,6 +174,8 @@ from __future__ import annotations
 import argparse
 import binascii
 import dataclasses
+import functools
+import gc
 import importlib.util
 import json
 import logging
@@ -327,6 +346,7 @@ def kitti_config(seq):
     )
 
 
+@functools.lru_cache(maxsize=None)
 def loop_sequence():
     from stereoslam_tpu_torch.utils.synthetic import generate_sequence
 
@@ -2201,6 +2221,7 @@ def multiseq_sequence(b: int):
                              n_points=2000, trajectory="forward", speed=0.6, seed=MS_SEED0 + b)
 
 
+@functools.lru_cache(maxsize=None)
 def multiseq_sequences():
     """The B sequences, made in parallel processes (the generator splats
     each point in a Python loop)."""
@@ -2646,6 +2667,463 @@ def phase_multiseq(dev, card: str):
     return numbers, launches["lk_pyramid_batched"]
 
 
+# ---------------------------------------------------------------------------
+# Phase dist: multi-device (parallel/), one rank on the card, two Gloo ranks
+# on the card, and the mesh= facades.
+# ---------------------------------------------------------------------------
+
+# (a)/(b) inputs: the loop database at its full size (1536 keyframe rows of
+# 1064-float CALC descriptors), a pose graph of the endurance run's size
+# (195 valid vertices in 1536 rows, 1.25 laps of a 30 m circle with 3 loop
+# edges; PR 9's run had 195 KFs), and a BA window at the backend's shapes
+# (W=7 keyframes, N=400 feature slots, C=W*N landmark slots), each laid out
+# for two shards.
+DIST_K, DIST_D, DIST_QUERY, DIST_REVISIT, DIST_GAP = 1536, 1064, 1200, 300, 20
+DIST_PGO_VERTICES, DIST_PGO_GN, DIST_PGO_CG = 195, 3, 512
+DIST_BA_W, DIST_BA_N = 7, 400
+DIST_RANKS = 2
+# Two Gloo ranks against one rank on NCCL: the CPU tests' tolerances against
+# JAX (tests/test_torch_parallel.py): scores 1e-5, poses 2e-3.
+DIST_SCORE_TOL, DIST_POSE_TOL, DIST_BA_GT_TOL = 1e-5, 2e-3, 5e-3
+DIST_RANK_TIMEOUT_S = 300
+# (c) StereoSlam(mesh=make_mesh()) over phase loop's circuit runs its BA at
+# retire (inline_ba=False), so it is another run than phase loop's (79, 2,
+# 0.129): (keyframes, loop edges, frame ATE in m), pinned from a run on an
+# NVIDIA H100 80GB HBM3; it repeats bit for bit, as phase loop's does.
+DIST_MIN_EDGE_GAP = 20
+EXPECTED_DIST_LOOP_RUN = (82, 2, 0.1703)
+
+
+def dist_pose_graph(seed: int = 0) -> dict:
+    """A drifted circle of DIST_PGO_VERTICES keyframes over 1.25 laps in
+    DIST_K rows: odometry edges with 0.01 noise, loop edges from three late
+    keyframes to the ones they revisit (ground truth), KF 0 and the last 7
+    (the active window) fixed; numpy arrays of a PoseGraph."""
+    from stereoslam_tpu_torch.ops import se3
+
+    rng = np.random.default_rng(seed)
+    n, K = DIST_PGO_VERTICES, DIST_K
+    per_lap = n / 1.25
+    gt = []
+    for i in range(n):
+        c, s = np.cos(2 * np.pi * i / per_lap), np.sin(2 * np.pi * i / per_lap)
+        T_wc = np.eye(4)
+        T_wc[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        T_wc[:3, 3] = [30.0 * (1 - c), 0, 30.0 * s]
+        gt.append(np.linalg.inv(T_wc))
+    gt = np.stack(gt).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    meas = np.tile(np.eye(4, dtype=np.float32), (2 * K, 1, 1))
+    edge_i = np.concatenate([np.arange(K), np.arange(K)]).astype(np.int32)
+    edge_j = np.zeros(2 * K, np.int32)
+    edge_valid = np.zeros(2 * K, bool)
+    poses[0] = gt[0]
+    for i in range(1, n):
+        noise = se3.exp(torch.from_numpy((rng.standard_normal(6) * 0.01).astype(np.float32)))
+        meas[i] = noise.numpy() @ gt[i] @ np.linalg.inv(gt[i - 1])
+        poses[i] = meas[i] @ poses[i - 1]
+        edge_j[i], edge_valid[i] = i - 1, True
+    for i in (160, 175, 190):
+        j = int(round(i - per_lap))
+        meas[K + i] = gt[i] @ np.linalg.inv(gt[j])
+        edge_j[K + i], edge_valid[K + i] = j, True
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    fixed[n - 7:] = True
+    return dict(poses=poses, vertex_valid=np.arange(K) < n, fixed=fixed, edge_i=edge_i,
+                edge_j=edge_j, edge_meas=meas, edge_valid=edge_valid)
+
+
+def dist_ba_problem(seed: int = 0):
+    """tests/test_parallel.py's make_ba_problem at the window's shapes, laid
+    out for DIST_RANKS shards (observation column block s references
+    landmark block s): numpy arrays of a BAProblem, the true poses, and the
+    intrinsics (fx, fy, cx, cy)."""
+    from stereoslam_tpu_torch.ops import se3
+    from stereoslam_tpu_torch.ops.camera import Intrinsics, world2pixel
+
+    rng = np.random.default_rng(seed)
+    W, N = DIST_BA_W, DIST_BA_N
+    C = W * N
+    intr = (400.0, 400.0, 320.0, 160.0)
+    Cl, Nl = C // DIST_RANKS, N // DIST_RANKS
+    xi = np.zeros((W, 6), np.float32)
+    xi[:, 2] = -np.arange(W) * 0.4
+    cam_gt = se3.exp(torch.from_numpy(xi)).numpy()
+    X_gt = rng.uniform([-6, -3, 5], [6, 3, 25], (C, 3)).astype(np.float32)
+    obs_lm = np.zeros((W, N), np.int32)
+    for s in range(DIST_RANKS):
+        obs_lm[:, s * Nl:(s + 1) * Nl] = rng.integers(s * Cl, (s + 1) * Cl, (W, Nl))
+    px = np.stack([world2pixel(torch.from_numpy(X_gt[obs_lm[w]]), torch.from_numpy(cam_gt[w]),
+                               Intrinsics.create(*intr)).numpy() for w in range(W)])
+    valid = (px[..., 0] > 0) & (px[..., 0] < 640) & (px[..., 1] > 0) & (px[..., 1] < 320)
+    dxi = (rng.standard_normal((W, 6)) * 0.01).astype(np.float32)
+    dxi[0] = 0
+    cam0 = (se3.exp(torch.from_numpy(dxi)) @ torch.from_numpy(cam_gt)).numpy()
+    X0 = X_gt + rng.normal(0, 0.03, X_gt.shape).astype(np.float32)
+    fixed = np.zeros(C, bool)
+    fixed[::7] = True
+    X0[fixed] = X_gt[fixed]
+    prob = dict(cam_T=cam0, cam_valid=np.ones(W, bool), cam_fixed=np.zeros(W, bool), lm_pos=X0,
+                lm_valid=np.ones(C, bool), lm_fixed=fixed, obs_px=px.astype(np.float32),
+                obs_lm=obs_lm, obs_valid=valid)
+    return prob, cam_gt, intr
+
+
+def dist_search_inputs() -> dict:
+    """The full-size database: unit rows, a revisit of the query at
+    DIST_REVISIT, rows inserted up to the query."""
+    g = torch.Generator().manual_seed(5)
+    db = torch.randn(DIST_K, DIST_D, generator=g)
+    db[DIST_REVISIT] = db[DIST_QUERY] + 0.3 * torch.randn(DIST_D, generator=g)
+    db = db / db.norm(dim=1, keepdim=True)
+    return dict(db=db.numpy(), valid=(np.arange(DIST_K) <= DIST_QUERY),
+                q=db[DIST_QUERY].numpy().copy())
+
+
+def dist_ops(mesh, dev, inputs: dict) -> dict:
+    """The three sharded ops on this rank's mesh; results as numpy."""
+    from stereoslam_tpu_torch import bridge
+    from stereoslam_tpu_torch.ops.camera import Intrinsics
+    from stereoslam_tpu_torch.parallel.dist_ba import solve_window_ba_sharded
+    from stereoslam_tpu_torch.parallel.dist_lcd import sharded_descriptor_search
+    from stereoslam_tpu_torch.parallel.dist_pgo import optimize_pose_graph_sharded
+
+    s = inputs["search"]
+    r = sharded_descriptor_search(torch.from_numpy(s["db"]).to(dev),
+                                  torch.from_numpy(s["valid"]).to(dev),
+                                  torch.from_numpy(s["q"]).to(dev), DIST_QUERY - DIST_GAP + 1,
+                                  0.05, mesh)
+    graph = bridge.pose_graph_from_numpy(inputs["pgo"], dev)
+    poses = optimize_pose_graph_sharded(graph, mesh, gn_iters=DIST_PGO_GN, cg_iters=DIST_PGO_CG)
+    prob = bridge.ba_problem_from_numpy(inputs["ba"], dev)
+    ba = solve_window_ba_sharded(prob, Intrinsics.create(*inputs["intr"]), mesh)
+    return {"search": np.array([float(r.best_id), float(r.best_score), float(r.n_suspect)]),
+            "pgo": poses.cpu().numpy(), "ba": ba.cam_T.cpu().numpy()}
+
+
+def dist_gloo_rank(rank: int, store: str, inputs_path: str, out_path: str) -> None:
+    """(b) One of DIST_RANKS ranks on the one card over Gloo (NCCL refuses
+    two ranks on one device): the same ops on the same inputs, saved."""
+    from stereoslam_tpu_torch.parallel.distributed import initialize
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+
+    initialize(init_method=f"file://{store}", world_size=DIST_RANKS, rank=rank,
+               backend="gloo", device="cuda")
+    mesh = make_mesh()
+    with np.load(inputs_path, allow_pickle=True) as f:
+        inputs = f["inputs"].item()
+    out = dist_ops(mesh, torch.device("cuda", torch.cuda.current_device()), inputs)
+    torch.cuda.synchronize()
+    np.savez(out_path, **out)
+    torch.distributed.destroy_process_group()
+
+
+def ba_gt_err(cam_T: np.ndarray, cam_gt: np.ndarray) -> float:
+    from stereoslam_tpu_torch.ops import se3
+
+    return float(se3.log(torch.from_numpy(cam_T.astype(np.float64))
+                         @ se3.inv(torch.from_numpy(cam_gt.astype(np.float64)))).abs().max())
+
+
+def events_ms(fn) -> float:
+    """Milliseconds of one call between two CUDA events after a warm-up
+    call: the device's time where the call reads nothing back (its enqueue,
+    where the host is slower)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_dist_one_rank(dev, mesh, inputs: dict, card: str) -> dict:
+    """(a) One rank, NCCL: each sharded op against its dense twin."""
+    from stereoslam_tpu_torch import bridge
+    from stereoslam_tpu_torch.ops.pgo import optimize_pose_graph
+    from stereoslam_tpu_torch.parallel.mesh import axis_size
+
+    if axis_size(mesh, "model") != 1 or torch.distributed.get_backend() != "nccl":
+        fail("dist", "(a) mesh", f"{mesh} on {torch.distributed.get_backend()}")
+    out = dist_ops(mesh, dev, inputs)
+    s = inputs["search"]
+    db, q = torch.from_numpy(s["db"]).to(dev), torch.from_numpy(s["q"]).to(dev)
+    valid = torch.from_numpy(s["valid"]).to(dev)
+    ids = torch.arange(DIST_K, device=dev)
+
+    def dense_scan():
+        scores = db @ q
+        scores = torch.where(valid & ((DIST_QUERY - ids) >= DIST_GAP), scores,
+                             torch.full_like(scores, -1.0))
+        best = torch.argmax(scores)
+        return best, scores[best], (scores > 0.05).to(torch.int32).sum()
+
+    best, score, n_sus = dense_scan()
+    dense = np.array([float(best), float(score), float(n_sus)])
+    if not (np.array_equal(out["search"], dense) and int(best) == DIST_REVISIT):
+        fail("dist", "(a) search", f"sharded (id, score, suspects) {out['search'].tolist()} against "
+             f"the dense scan's {dense.tolist()} (planted revisit {DIST_REVISIT})")
+    graph = bridge.pose_graph_from_numpy(inputs["pgo"], dev)
+    dense_pgo = optimize_pose_graph(graph, gn_iters=DIST_PGO_GN, cg_iters=DIST_PGO_CG,
+                                    cg_rtol=1e-12, gn_xtol=-1).cpu().numpy()
+    if not np.array_equal(out["pgo"], dense_pgo):
+        fail("dist", "(a) pgo", f"sharded PGO differs from optimize_pose_graph(cg_rtol=1e-12, "
+             f"gn_xtol=-1) by {np.abs(out['pgo'] - dense_pgo).max():.3e}")
+    err = ba_gt_err(out["ba"], inputs["cam_gt"])
+    if not err < DIST_BA_GT_TOL:
+        fail("dist", "(a) ba", f"sharded BA's cameras {err:.3e} from the truth (< {DIST_BA_GT_TOL})")
+
+    from stereoslam_tpu_torch.ops.camera import Intrinsics
+    from stereoslam_tpu_torch.parallel.dist_ba import solve_window_ba_sharded
+    from stereoslam_tpu_torch.parallel.dist_lcd import sharded_descriptor_search
+    from stereoslam_tpu_torch.parallel.dist_pgo import optimize_pose_graph_sharded
+
+    prob = bridge.ba_problem_from_numpy(inputs["ba"], dev)
+    intr = Intrinsics.create(*inputs["intr"])
+    times = {
+        "search": eager_ms(lambda: sharded_descriptor_search(
+            db, valid, q, DIST_QUERY - DIST_GAP + 1, 0.05, mesh), launches=50),
+        "dense scan": eager_ms(dense_scan, launches=50),
+        "pgo": events_ms(lambda: optimize_pose_graph_sharded(
+            graph, mesh, gn_iters=DIST_PGO_GN, cg_iters=DIST_PGO_CG)),
+        "ba": events_ms(lambda: solve_window_ba_sharded(prob, intr, mesh)),
+    }
+    t0 = time.perf_counter()
+    optimize_pose_graph(graph, gn_iters=DIST_PGO_GN, cg_iters=DIST_PGO_CG, cg_rtol=1e-12,
+                        gn_xtol=-1)
+    torch.cuda.synchronize()
+    times["dense pgo (host wall)"] = (time.perf_counter() - t0) * 1e3
+    print(f"dist: (a) one rank, NCCL: search over {DIST_K}x{DIST_D} (id {int(out['search'][0])}, "
+          f"score {out['search'][1]:.6f}, {int(out['search'][2])} suspects) equal to the dense "
+          f"scan; sharded PGO ({DIST_PGO_VERTICES} vertices in {DIST_K} rows, {2 * DIST_K} edge "
+          f"rows, {DIST_PGO_GN} GN x {DIST_PGO_CG} CG) bit for bit the dense solver's; sharded "
+          f"BA (W={DIST_BA_W}, N={DIST_BA_N}, 5x10 iterations) cameras {err:.2e} from the truth; "
+          "ms: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) +
+          f" (search and scan: CUDA events over 50 eager calls; pgo, ba: one call) [{card}]",
+          flush=True)
+    return out
+
+
+def check_dist_gloo(one: dict, inputs: dict, card: str) -> None:
+    """(b) DIST_RANKS ranks on the one card over Gloo, in processes of their
+    own, held to (a) within the CPU tests' tolerances."""
+    import multiprocessing
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    d = Path(work.name)
+    np.savez(d / "inputs.npz", inputs=np.array(inputs, dtype=object))
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dist_gloo_rank, args=(r, str(d / "store"), str(d / "inputs.npz"),
+                                                      str(d / f"out{r}.npz")))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if alive:
+        fail("dist", "(b) gloo", f"ranks {alive} still running after {DIST_RANK_TIMEOUT_S} s")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        fail("dist", "(b) gloo", f"rank exit codes {codes}")
+    outs = [dict(np.load(d / f"out{r}.npz")) for r in range(DIST_RANKS)]
+    work.cleanup()
+    wall = time.perf_counter() - t0
+    worst = {}
+    for r, o in enumerate(outs):
+        if not (o["search"][0] == one["search"][0] and o["search"][2] == one["search"][2]
+                and abs(o["search"][1] - one["search"][1]) <= DIST_SCORE_TOL):
+            fail("dist", "(b) search", f"rank {r}: {o['search'].tolist()} against one rank's "
+                 f"{one['search'].tolist()}")
+        for k in ("pgo", "ba"):
+            worst[k] = max(worst.get(k, 0.0), float(np.abs(o[k] - one[k]).max()))
+        if not np.array_equal(o["pgo"], outs[0]["pgo"]) or not np.array_equal(o["ba"], outs[0]["ba"]):
+            fail("dist", "(b) replicated", f"rank {r}'s result differs from rank 0's")
+    if not (worst["pgo"] <= DIST_POSE_TOL and worst["ba"] <= DIST_POSE_TOL):
+        fail("dist", "(b) tolerance", f"max |d| against one rank: {worst} (<= {DIST_POSE_TOL})")
+    print(f"dist: (b) {DIST_RANKS} Gloo ranks on one card: search equal, PGO max |d pose| "
+          f"{worst['pgo']:.3e}, BA max |d cam_T| {worst['ba']:.3e} against one rank; ranks' "
+          f"results identical; {wall:.1f} s with the ranks' start-up [{card}]", flush=True)
+
+
+def check_dist_slam(dev, card: str) -> int:
+    """(c) StereoSlam(mesh=make_mesh()) over phase loop's circuit."""
+    from stereoslam_tpu_torch.core.system import StereoSlam
+    from stereoslam_tpu_torch.models.calc import DescriptorModel
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+    from stereoslam_tpu_torch.utils.metrics import ate_rmse
+
+    seq = loop_sequence()
+    cfg = loop_config(seq)
+    slam = StereoSlam(cfg, device=dev, enable_loop=True, descriptor_model=DescriptorModel(),
+                      mesh=make_mesh())
+    if slam.inline_ba:
+        fail("dist", "(c) inline_ba", "a mesh must move the BA to retire")
+    closer = slam._loop_closer
+    closer.stage_times = True
+    n = len(seq.left)
+    reset_counters()
+    t0 = time.perf_counter()
+    for t in range(n):
+        if not slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t]):
+            fail("dist", "(c) LOST", f"tracking LOST at frame {t}")
+    edges = slam.loop_edges
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = L.lk_pyramid.launches
+    per_level = K.lk_level.launches + K.lk_final_error.launches
+    n_kf = int(slam.map.n_kf)
+    ids, T = slam.frame_trajectory()
+    gt = np.linalg.inv(seq.T_cw.astype(np.float64))
+    ate = ate_rmse(np.linalg.inv(T.astype(np.float64)), gt[ids], align=False)
+    fid = slam.map.kf_frame_id[:n_kf].cpu().numpy()
+    gaps = [(c, lp, c - lp, float(np.linalg.norm(gt[fid[c]][:3, 3] - gt[fid[lp]][:3, 3])))
+            for c, lp in edges]
+    times = closer.times
+    run = (n_kf, len(edges), round(ate, 4))
+    print(f"dist: (c) StereoSlam(mesh=make_mesh()) over the loop circuit ({n} frames 1241x376): "
+          f"{n / wall:.2f} FPS, (KFs, edges, ATE) {run}, edges (cur, loop, id gap, ground-truth m) "
+          f"{gaps}, lk_pyramid launches {launches} ({launches / (n - 1):.2f}/tracked frame), "
+          f"per-level {per_level}; corrections (host wall ms, sharded PGO GN/CG): "
+          f"{[round(v * 1e3, 1) for v in times.get('correct', [])]}, "
+          f"{list(zip(times.get('pgo_gn', []), times.get('pgo_cg', [])))}; detect median "
+          f"{np.median(times['detect']) * 1e3 if times.get('detect') else float('nan'):.2f} ms "
+          f"[{card}]", flush=True)
+    if not edges:
+        fail("dist", "(c) edges", "no loop edge")
+    for c, lp, gap, dist in gaps:
+        if gap < DIST_MIN_EDGE_GAP or dist >= MAX_LOOP_GT_M:
+            fail("dist", "(c) edges", f"edge {c}->{lp}: id gap {gap}, ground truth {dist:.2f} m")
+    if not ate <= MAX_LOOP_ATE_M:
+        fail("dist", "(c) ATE", f"frame ATE {ate:.4f} m exceeds {MAX_LOOP_ATE_M} m")
+    if launches < n - 1 or per_level:
+        fail("dist", "(c) launches", f"lk_pyramid {launches} for {n - 1} tracked frames, "
+             f"per-level {per_level}")
+    if run != EXPECTED_DIST_LOOP_RUN:
+        fail("dist", "(c) repeat", f"(KFs, edges, ATE) = {run}, expected {EXPECTED_DIST_LOOP_RUN}")
+    check_dist_correction(slam, edges[-1], card)
+    return launches
+
+
+def check_dist_correction(slam, edge, card: str) -> None:
+    """(c) The run's verified loops needed no correction, so, as phase loop's
+    check_correction does, the correction stage is applied at the last edge
+    on the final state: through the mesh closer (the sharded PGO, the
+    config's 30 GN x 512 CG steps in full) and through a mesh-less closer
+    (the dense PGO with its early exits), same verdict and merge, poses
+    within phase loop's card-vs-CPU bounds."""
+    from stereoslam_tpu_torch.core.loopclosing import LoopCloser
+
+    closer = slam._loop_closer
+    kf, loop_kf = edge
+    verify, _, m_v = closer._verify_impl(slam.map, slam.loop, kf, loop_kf)
+    T, pairs = verify.T_corrected, verify.match_loop_feat
+    dense_closer = LoopCloser(slam.cfg, closer.intr, slam.device, descriptor_model=closer.model)
+    out = {}
+    for name, c in (("sharded", closer), ("dense", dense_closer)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, _, remap, packed = c._correct_impl(m_v, slam.loop, kf, loop_kf, T, pairs)
+        packed = packed.cpu().numpy()
+        out[name] = (m, remap, packed, (time.perf_counter() - t0) * 1e3,
+                     c.times["pgo_gn"][-1], c.times["pgo_cg"][-1])
+    (ms, rs, ps, ts, gs, cs), (md, rd, pd, td, gd, cd) = out["sharded"], out["dense"]
+    d_pose = (ms.kf_T_cw - md.kf_T_cw).abs().max().item()
+    d_pos = (ms.lm_pos - md.lm_pos)[md.lm_valid].abs().max().item()
+    same_merge = torch.equal(rs, rd) and torch.equal(ms.kf_feat_lm, md.kf_feat_lm)
+    print(f"dist: (c) correction at edge {kf}->{loop_kf} on the final state: sharded PGO "
+          f"{gs} GN / {cs} CG, {ts:.1f} ms host wall, applied {bool(ps[0])}, mean edge residual "
+          f"{ps[1]:.2e}; dense PGO {gd} GN / {cd} CG, {td:.1f} ms, applied {bool(pd[0])}; max |d "
+          f"pose| {d_pose:.2e}, max |d landmark| {d_pos:.2e} m, merge "
+          f"{'identical' if same_merge else 'DIFFERS'} [{card}]", flush=True)
+    if not (bool(ps[0]) and bool(pd[0]) and same_merge and d_pose <= 2e-3 and d_pos <= 2e-2):
+        fail("dist", "(c) correction", "the sharded correction disagrees with the dense one")
+
+
+def check_dist_multiseq(dev, card: str) -> int:
+    """(d) MultiSeqVO(mesh=make_mesh(dp=1)) at bench.py Phase M: every
+    sequence as in phase multiseq's pinned run, one replay a step."""
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+    from stereoslam_tpu_torch.parallel.multiseq import MultiSeqVO
+    from stereoslam_tpu_torch.utils.feed import BatchFeed
+
+    seqs = multiseq_sequences()
+    cfg = multiseq_config()
+    B = MS_BATCH
+    stack = lambda t, f: np.stack([getattr(q, f)[t] for q in seqs])  # noqa: E731
+    vo = MultiSeqVO(cfg, batch=B, device=dev, mesh=make_mesh(dp=1))
+    vo.initialize(stack(0, "left"), stack(0, "right"), np.zeros(B))
+    reset_counters()
+    t0 = time.perf_counter()
+    for t in range(1, MS_WARMUP):
+        vo.process_frames(stack(t, "left"), stack(t, "right"), np.full(B, t * 0.1))
+    feed = BatchFeed(((stack(t, "left"), stack(t, "right"), np.full(B, t * 0.1))
+                      for t in range(MS_WARMUP, MS_FRAMES)), device=dev)
+    for lr, ts in feed:
+        vo.process_staged(lr, ts)
+    vo.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batched = L.lk_pyramid.batched_launches
+    steps = MS_FRAMES - 1
+    n_kf = vo.maps.n_kf.cpu().numpy()
+    ms = multiseq_world_script()
+    run = tuple((int(n_kf[b]), round(ms.kf_ate(vo, b, seqs[b]), 4)) for b in range(B))
+    print(f"dist: (d) MultiSeqVO(mesh=make_mesh(dp=1)), Phase M B={B} x {MS_FRAMES} frames: "
+          f"{B * steps / wall:.2f} aggregate FPS, {vo.graph.replays} replays for {steps} steps, "
+          f"batched lk_pyramid launches {batched}; (KFs, ATE) {run} [{card}]", flush=True)
+    if vo.graph.replays != steps:
+        fail("dist", "(d) graph", f"{vo.graph.replays} graph replays for {steps} steps")
+    if run != EXPECTED_MULTISEQ_RUN:
+        fail("dist", "(d) repeat", f"(KFs, ATE) per sequence = {run}, expected the unsharded "
+             f"run's {EXPECTED_MULTISEQ_RUN}")
+    return batched
+
+
+def phase_dist(dev, card: str):
+    """Multi-device on the card: (a) the sharded ops on one NCCL rank against
+    their dense twins, (b) two Gloo ranks on the card against (a), (c)
+    StereoSlam(mesh=...) over the loop circuit, (d) MultiSeqVO(mesh=...) at
+    Phase M."""
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+
+    prob, cam_gt, intr = dist_ba_problem()
+    inputs = {"search": dist_search_inputs(), "pgo": dist_pose_graph(), "ba": prob,
+              "cam_gt": cam_gt, "intr": intr}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        t_part.append(time.perf_counter())
+        print(f"dist: {name} took {t_part[-1] - t_part[-2]:.1f} s", flush=True)
+
+    one = check_dist_one_rank(dev, make_mesh(), inputs, card)
+    part("(a)")
+    check_dist_gloo(one, inputs, card)
+    part("(b)")
+    launches = check_dist_slam(dev, card)
+    part("(c)")
+    batched = check_dist_multiseq(dev, card)
+    part("(d)")
+    # The card's world of one ends with the phase, after the graphs that
+    # captured its NCCL sums are freed (the facades hold reference cycles).
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.distributed.destroy_process_group()
+    return launches, batched
+
+
 def phase_profile(dev, seq, n_frames: int, card: str) -> None:
     """Device busy share and the top CUDA kernels over frames
     [WARMUP, WARMUP + n_frames) of a second run of the main path."""
@@ -2742,6 +3220,7 @@ def main() -> None:
     worst_world = phase("world", phase_world, dev, card)
     endurance_launches = phase("endurance", phase_endurance, dev, card)
     batched = phase("multiseq", phase_multiseq, dev, card)
+    dist_launches = phase("dist", phase_dist, dev, card)
     if args.profile:
         run_phase("profile", phase_profile, dev, seq, min(args.profile, len(seq.left) - WARMUP),
                   card)
@@ -2761,7 +3240,8 @@ def main() -> None:
                                ("lk_pyramid_batched", "stereoslam_tpu/ops/lk_pallas.py:185"))
     ]
     print(f"launches: lk_pyramid on phase main {launches['lk_pyramid']}, undistort "
-          f"{undistort_launches}, endurance (a) {endurance_launches}", flush=True)
+          f"{undistort_launches}, endurance (a) {endurance_launches}, dist (c) "
+          f"{dist_launches[0]}, lk_pyramid_batched on dist (d) {dist_launches[1]}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,9 @@ counterpart is easy to find:
 - ``utils/``  numpy-only trajectory export, metrics and the synthetic
               sequence generator; the ray-cast world renderer, the device
               feed and checkpoints.
+- ``parallel/`` the batched multi-sequence mode (``MultiSeqVO``) and
+              multi-device: ``torch.distributed`` meshes, the sharded
+              descriptor search, pose graph and Schur BA.
 - ``eval``    the world-circuit evaluation (``run_world_eval``).
 - ``bridge``  numpy <-> torch state and CALC-weight converters.
 

@@ -14,7 +14,8 @@ cast.  The main path uses :func:`calc_params_from_flax`, to load the
 shipped CALC weights, and checkpoints (``utils/checkpoint.py``) go through
 the state converters; CALC training (``models/train_calc.py``) returns its
 encoder through :func:`calc_params_to_flax` and takes a Flax init through
-the encoder and decoder converters.
+the encoder and decoder converters.  Pose graphs and BA problems cross the
+same way, for the sharded solvers' tests.
 """
 
 from __future__ import annotations
@@ -73,6 +74,30 @@ def loop_state_to_numpy(lp: LoopState) -> Dict[str, np.ndarray]:
     """``orb_desc`` comes back as the port's int32 words; ``.view(np.uint32)``
     gives the JAX package's words."""
     return {k: v.cpu().numpy() for k, v in lp._asdict().items()}
+
+
+def pose_graph_from_numpy(d: Mapping[str, Any], device):
+    """A JAX ``PoseGraph`` (or its numpy dict) -> the port's."""
+    from stereoslam_tpu_torch.ops.pgo import PoseGraph
+
+    d = _fields(d)
+    return PoseGraph(**{k: _tensor(d[k], device) for k in PoseGraph._fields})
+
+
+def pose_graph_to_numpy(graph) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in graph._asdict().items()}
+
+
+def ba_problem_from_numpy(d: Mapping[str, Any], device):
+    """A JAX ``BAProblem`` (or its numpy dict) -> the port's."""
+    from stereoslam_tpu_torch.ops.schur import BAProblem
+
+    d = _fields(d)
+    return BAProblem(**{k: _tensor(d[k], device) for k in BAProblem._fields})
+
+
+def ba_problem_to_numpy(prob) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in prob._asdict().items()}
 
 
 def calc_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

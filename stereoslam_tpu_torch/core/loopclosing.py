@@ -17,8 +17,10 @@ Four stages driven by the host:
 Each stage's decision scalars come home packed in one small float32 tensor,
 read with one host read; the cooldown and database size are mirrored on the
 host.  Random minimal sets for PnP come from the closer's own
-``torch.Generator`` (seeded 7).  The JAX package's device-mesh branches have
-no counterpart here.
+``torch.Generator`` (seeded 7).  With a ``mesh`` (``parallel/mesh.py``) the
+detection scan and the pose-graph optimization are the sharded ones of
+``parallel/dist_lcd.py`` and ``parallel/dist_pgo.py``, over the mesh's model
+axis, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from stereoslam_tpu_torch.ops.lm import optimize_pose
 from stereoslam_tpu_torch.ops.orb import pyramid_orb
 from stereoslam_tpu_torch.ops.pgo import PoseGraph, optimize_pose_graph
 from stereoslam_tpu_torch.ops.pnp import draw_minimal_sets, pnp_ransac
+from stereoslam_tpu_torch.parallel.dist_lcd import sharded_descriptor_search
+from stereoslam_tpu_torch.parallel.dist_pgo import optimize_pose_graph_sharded
 
 log = logging.getLogger(__name__)
 
@@ -106,13 +110,20 @@ class LoopCloser:
     else the shipped trained CALC weights when present, else HOG).  Setting
     ``stage_times`` makes each stage end with a device synchronize and
     append its host wall time to ``self.times[stage]``; PGO iteration counts go to
-    ``self.times["pgo_gn"]`` / ``["pgo_cg"]`` either way.
+    ``self.times["pgo_gn"]`` / ``["pgo_cg"]`` either way.  ``mesh``: a
+    ``DeviceMesh`` over which the database search and the pose graph are
+    sharded (its "model" dimension); every rank runs the same closer on the
+    same state.
     """
 
-    def __init__(self, cfg: SlamConfig, intr: Intrinsics, device, descriptor_model=None):
+    def __init__(self, cfg: SlamConfig, intr: Intrinsics, device, descriptor_model=None,
+                 mesh=None):
         self.cfg = cfg
         self.intr = intr
         self.device = torch.device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a closer on {self.device}")
+        self.mesh = mesh
         if descriptor_model is not None:
             self.model = descriptor_model       # tests pin the HOG surrogate this way
         elif cfg.loop.caffe_weights:
@@ -177,6 +188,13 @@ class LoopCloser:
     # ------------------------------------------------------------------
     def _detect_impl(self, loop: LoopState, kf_id: int):
         cfg = self.cfg.loop
+        if self.mesh is not None:
+            # The row-sharded scan over the mesh (parallel/dist_lcd.py).
+            res = sharded_descriptor_search(loop.deep_db, loop.db_valid, loop.deep_db[kf_id],
+                                            kf_id - cfg.id_gap + 1, cfg.similarity_low, self.mesh)
+            found = (res.best_score >= cfg.similarity_high) & (res.n_suspect <= cfg.max_above_low)
+            det = DetectResult(found=found, loop_kf=res.best_id.long(), max_score=res.best_score)
+            return det, _pack(det.found, det.loop_kf, det.max_score)
         scores = loop.deep_db @ loop.deep_db[kf_id]      # (K,) the whole linear scan
         ids = torch.arange(scores.shape[0], device=scores.device)
         eligible = loop.db_valid & ((kf_id - ids) >= cfg.id_gap)
@@ -339,8 +357,13 @@ class LoopCloser:
             edge_valid=torch.cat([seq_valid, m1.kf_valid & (m1.kf_loop >= 0)]),
         )
         stats: dict = {}
-        poses_opt = optimize_pose_graph(graph, gn_iters=cfg.loop.pgo_gn_iters,
-                                        cg_iters=cfg.loop.pgo_cg_iters, stats=stats)
+        if self.mesh is not None:
+            poses_opt = optimize_pose_graph_sharded(graph, self.mesh,
+                                                    gn_iters=cfg.loop.pgo_gn_iters,
+                                                    cg_iters=cfg.loop.pgo_cg_iters, stats=stats)
+        else:
+            poses_opt = optimize_pose_graph(graph, gn_iters=cfg.loop.pgo_gn_iters,
+                                            cg_iters=cfg.loop.pgo_cg_iters, stats=stats)
         self.times["pgo_gn"].append(stats["gn_iters"])
         self.times["pgo_cg"].append(stats["cg_iters"])
 

@@ -109,8 +109,9 @@ class StereoSlam:
         enable_backend: bool = True,
         enable_loop: bool = True,
         readback_lag: Optional[int] = None,
-        inline_ba: bool = True,
+        inline_ba: Optional[bool] = None,
         descriptor_model=None,
+        mesh=None,
     ):
         """``device``: where every tensor of the state lives, the card unless
         the caller asks for ``"cpu"`` (which runs the plain versions of the
@@ -118,13 +119,19 @@ class StereoSlam:
         ``readback_lag``: frames between a frame's tracking and its retire
         (default 0; see the module docstring).
         ``inline_ba``: run windowed BA inside the keyframe branch of the frame
-        step; False runs it when the keyframe frame retires.
+        step; False runs it when the keyframe frame retires (default: True
+        unless a mesh is given, as in JAX).
         ``descriptor_model``: the loop closer's whole-image descriptor
-        (default: the shipped trained CALC weights, else HOG)."""
+        (default: the shipped trained CALC weights, else HOG).
+        ``mesh``: a ``DeviceMesh`` (``parallel/mesh.py`` ``make_mesh``) over
+        which the loop closer shards its database search and pose graph;
+        every rank runs the same facade on the same frames."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StereoSlam runs on the card by default and no CUDA device is "
                                "available: pass device='cpu' to run on the CPU")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a StereoSlam on {self.device}")
         cfg.validate()
         self.cfg = cfg
         self.enable_backend = enable_backend
@@ -152,7 +159,7 @@ class StereoSlam:
             self._pre_left = partial(_widen_remap, self.undistortion_maps[0])
             self._pre_right = partial(_widen_remap, self.undistortion_maps[1])
         self.fs, self.map, self.loop = init_all(cfg, self.device)
-        self.inline_ba = inline_ba
+        self.inline_ba = bool(inline_ba) if inline_ba is not None else mesh is None
         self._ba = partial(backend_mod.optimize_active_map, intr=self.intr_left, cfg=cfg)
         self.track_graph = TrackGraph(cfg, self.intr_left, self.device, pre_left=self._pre_left)
         # The packed outcome's landing place on the host, and its event.
@@ -192,7 +199,7 @@ class StereoSlam:
         self._pending_loops: List = []
         if enable_loop:
             self._loop_closer = loop_mod.LoopCloser(cfg, self.intr_left, self.device,
-                                                    descriptor_model=descriptor_model)
+                                                    descriptor_model=descriptor_model, mesh=mesh)
 
     # ------------------------------------------------------------------
     def process_frame(self, left: np.ndarray, right: np.ndarray, timestamp: float) -> bool:

@@ -9,12 +9,14 @@ edge terms added into their vertices with ``index_put_(accumulate=True)``,
 which adds in a fixed order on the card; the JAX package's one-hot (E, K)
 selection matmuls are an MXU idiom for the same sums.  The GN and CG
 ``while_loop``s are Python loops that read their exit test from the device
-once per iteration.
+once per iteration.  The GN step's system (:func:`_normal_equations`) and the
+CG iteration are shared with the edge-sharded solver,
+``parallel/dist_pgo.py``, through a hook that reduces each vertex sum.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -64,6 +66,71 @@ def _inv6x6(M: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[:, None, None], out, torch.full_like(out, float("nan")))
 
 
+def _normal_equations(poses: torch.Tensor, free: torch.Tensor, edge_i: torch.Tensor,
+                      edge_j: torch.Tensor, meas_inv: torch.Tensor, edge_w: torch.Tensor,
+                      damping: float, reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """One GN step's system over the given edges: the right-hand side ``b``,
+    ``H @ v`` and the Jacobi preconditioner, each vertex sum passed through
+    ``reduce`` (the identity on one device; a sum over the ranks that hold
+    the rest of the edge list in ``parallel/dist_pgo.py``)."""
+    K = poses.shape[0]
+    dt = poses.dtype
+    freec = free[:, None]
+    zero6 = torch.zeros((K, 6), dtype=dt, device=poses.device)
+    ei, ej = edge_i.long(), edge_j.long()
+
+    def to_vertices(vals_i, vals_j):
+        return _sum_by_slot(vals_i, ei, K) + _sum_by_slot(vals_j, ej, K)
+
+    r, J_i, J_j = _edge_jacobians(poses[ei], poses[ej], meas_inv)
+    J_i, J_j = J_i * edge_w, J_j * edge_w  # edge_w is {0, 1}: weights r, b, D and Hv alike
+    bD = reduce(torch.cat([
+        to_vertices(-torch.einsum("eki,ek->ei", J_i, r), -torch.einsum("eki,ek->ei", J_j, r)),
+        to_vertices(torch.einsum("eki,ekj->eij", J_i, J_i),
+                    torch.einsum("eki,ekj->eij", J_j, J_j)).reshape(K, 36)], dim=1))
+    b = torch.where(freec, bD[:, :6], zero6)
+    D = bD[:, 6:].reshape(K, 6, 6)
+    M_inv = _inv6x6(D + (damping + 1e-4) * torch.eye(6, dtype=dt, device=D.device))
+
+    def Hv(v):
+        v = torch.where(freec, v, zero6)
+        a = torch.einsum("ekl,el->ek", J_i, v[ei]) + torch.einsum("ekl,el->ek", J_j, v[ej])
+        out = reduce(to_vertices(torch.einsum("eki,ek->ei", J_i, a),
+                                 torch.einsum("eki,ek->ei", J_j, a)))
+        return torch.where(freec, out + damping * v, zero6)
+
+    def precond(v):
+        return torch.where(freec, torch.einsum("kij,kj->ki", M_inv, v), zero6)
+
+    return b, Hv, precond
+
+
+def _cg_step(Hv, precond, x, rr, p, rz):
+    """One preconditioned CG iteration: (x, residual, direction, r.z)."""
+    Hp = Hv(p)
+    alpha = rz / torch.clamp((p * Hp).sum(), min=1e-20)
+    x = x + alpha * p
+    rr = rr - alpha * Hp
+    z = precond(rr)
+    rz_new = (rr * z).sum()
+    p = z + rz_new / torch.clamp(rz, min=1e-20) * p
+    return x, rr, p, rz_new
+
+
+def _orthonormalized(poses: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """Remove accumulated rotation drift from the free vertices.  The SVD
+    raises on non-finite input, and a diverged pose must stay non-finite
+    for the caller's gate."""
+    finite = torch.isfinite(poses).all(-1).all(-1)
+    eye = torch.eye(4, dtype=poses.dtype, device=poses.device).expand(poses.shape)
+    poses_on = se3.orthonormalize(torch.where(finite[:, None, None], poses, eye))
+    return torch.where((free & finite)[:, None, None], poses_on, poses)
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def optimize_pose_graph(
     graph: PoseGraph,
     gn_iters: int = 20,
@@ -78,50 +145,24 @@ def optimize_pose_graph(
     twist step is at most ``gn_xtol``; CG after ``cg_iters`` steps or once the
     preconditioned residual drops to ``cg_rtol`` of its start.  ``stats``, if
     given, receives the GN and total CG iteration counts."""
-    K = graph.poses.shape[0]
     free = graph.vertex_valid & ~graph.fixed
     freec = free[:, None]
-    dt = graph.poses.dtype
-    ew = graph.edge_valid.to(dt)[:, None, None]
+    ew = graph.edge_valid.to(graph.poses.dtype)[:, None, None]
     meas_inv = se3.inv(graph.edge_meas)
-    ei, ej = graph.edge_i.long(), graph.edge_j.long()
-    zero6 = torch.zeros((K, 6), dtype=dt, device=graph.poses.device)
-
-    def to_vertices(vals_i, vals_j):
-        return _sum_by_slot(vals_i, ei, K) + _sum_by_slot(vals_j, ej, K)
+    zero6 = torch.zeros((graph.poses.shape[0], 6), dtype=graph.poses.dtype,
+                        device=graph.poses.device)
 
     poses = graph.poses
     gn, cg_total = 0, 0
     while gn < gn_iters:
-        r, J_i, J_j = _edge_jacobians(poses[ei], poses[ej], meas_inv)
-        J_i, J_j = J_i * ew, J_j * ew  # ew is {0, 1}: weights r, b, D and Hv alike
-        b = to_vertices(-torch.einsum("eki,ek->ei", J_i, r), -torch.einsum("eki,ek->ei", J_j, r))
-        b = torch.where(freec, b, zero6)
-        D = to_vertices(torch.einsum("eki,ekj->eij", J_i, J_i), torch.einsum("eki,ekj->eij", J_j, J_j))
-        M_inv = _inv6x6(D + (damping + 1e-4) * torch.eye(6, dtype=dt, device=D.device))
-
-        def Hv(v):
-            v = torch.where(freec, v, zero6)
-            a = torch.einsum("ekl,el->ek", J_i, v[ei]) + torch.einsum("ekl,el->ek", J_j, v[ej])
-            out = to_vertices(torch.einsum("eki,ek->ei", J_i, a), torch.einsum("eki,ek->ei", J_j, a))
-            return torch.where(freec, out + damping * v, zero6)
-
-        def precond(v):
-            return torch.where(freec, torch.einsum("kij,kj->ki", M_inv, v), zero6)
-
+        b, Hv, precond = _normal_equations(poses, free, graph.edge_i, graph.edge_j, meas_inv, ew,
+                                           damping, _identity)
         z = precond(b)
         rz0 = (b * z).sum()
         x, rr, p, rz = zero6, b, z, rz0
         k = 0
         while k < cg_iters and bool(rz > cg_rtol * rz0):
-            Hp = Hv(p)
-            alpha = rz / torch.clamp((p * Hp).sum(), min=1e-20)
-            x = x + alpha * p
-            rr = rr - alpha * Hp
-            z = precond(rr)
-            rz_new = (rr * z).sum()
-            p = z + rz_new / torch.clamp(rz, min=1e-20) * p
-            rz = rz_new
+            x, rr, p, rz = _cg_step(Hv, precond, x, rr, p, rz)
             k += 1
         cg_total += k
         poses = torch.where(free[:, None, None], se3.exp(x) @ poses, poses)
@@ -130,9 +171,4 @@ def optimize_pose_graph(
             break
     if stats is not None:
         stats.update(gn_iters=gn, cg_iters=cg_total)
-    # Remove accumulated rotation drift.  The SVD raises on non-finite input,
-    # and a diverged pose must stay non-finite for the caller's gate.
-    finite = torch.isfinite(poses).all(-1).all(-1)
-    eye = torch.eye(4, dtype=dt, device=poses.device).expand(poses.shape)
-    poses_on = se3.orthonormalize(torch.where(finite[:, None, None], poses, eye))
-    return torch.where((free & finite)[:, None, None], poses_on, poses)
+    return _orthonormalized(poses, free)

@@ -1,1 +1,1 @@
-"""Multi-sequence (batched) mode of the port."""
+"""Multi-sequence (batched) mode and multi-device meshes of the port."""

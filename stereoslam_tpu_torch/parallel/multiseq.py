@@ -51,8 +51,21 @@ stack 1.44 MB, and under 0.2 MB of keyframe poses and tracks: about 20 MB
 a step, about 6 us of the card's memory time.  The loop database is not an
 input of the step and is not copied.
 
-The JAX package's ``mesh`` / ``make_data_parallel_step`` (sharding the batch
-over several devices) is not ported: ``mesh`` must be None.
+**mesh** (``parallel/mesh.py``): the batch is sharded over the mesh's data
+axis, as JAX shards it (``multiseq.py:278-286``).  Rank r of that axis owns
+sequences ``[r B/dp, (r+1) B/dp)``: it holds their state, captures its own
+graph over them and serves their keyframes and loops.  ``initialize``,
+``process_frames`` and ``process_staged`` take the whole (B, ...) batch on
+every rank, as JAX's do.  Inside the step one sum over the axis
+(``distributed.host_local_array``) gives every rank the outcome rows of all
+B sequences, the keyframe priorities among them, so the top-``kf_sub``
+selection is the unsharded run's (JAX's is global too); NCCL's sum is
+captured in the graph, Gloo's runs on the CPU, where there is no graph.
+:func:`make_data_parallel_step` is JAX's (step, shard_batch) pair.
+
+**Undistortion.**  As in JAX (``multiseq.py:218-220``), the batched mode reads
+only the pinhole intrinsics of ``cfg.camera`` and tracks distorted frames
+as they are; a config with ``need_undistortion`` logs that once.
 """
 
 from __future__ import annotations
@@ -62,7 +75,7 @@ import logging
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +91,8 @@ from stereoslam_tpu_torch.models import calc
 from stereoslam_tpu_torch.ops.camera import Intrinsics
 from stereoslam_tpu_torch.ops.image import build_lk_pyramid
 from stereoslam_tpu_torch.ops.orb import pyramid_orb
+from stereoslam_tpu_torch.parallel.distributed import host_local_array
+from stereoslam_tpu_torch.parallel.mesh import axis_index, axis_size
 
 log = logging.getLogger(__name__)
 
@@ -148,17 +163,47 @@ def batched_track_step(fs, map_state, prev_left: torch.Tensor, cur_left: torch.T
                            build_lk_pyramid(cur_left, levels), intr, cfg)
 
 
+def make_data_parallel_step(mesh, intr: Intrinsics, cfg: SlamConfig, data_axis: str = "data"):
+    """JAX's data-parallel batched step: ``shard_batch`` takes this rank's
+    rows ``[r B/dp, (r+1) B/dp)`` along the data axis of every leaf of a
+    batched tree (tensors with a leading B), and ``step`` is
+    :func:`batched_track_step` on them."""
+    n, r = axis_size(mesh, data_axis), axis_index(mesh, data_axis)
+
+    def shard_batch(tree):
+        if isinstance(tree, torch.Tensor):
+            if tree.shape[0] % n:
+                raise ValueError(f"a batch of {tree.shape[0]} does not split over {n} ranks")
+            rows = tree.shape[0] // n
+            return tree[r * rows:(r + 1) * rows]
+        items = [shard_batch(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+    def step(fs, map_state, prev_left, cur_left):
+        return batched_track_step(fs, map_state, prev_left, cur_left, intr, cfg)
+
+    return step, shard_batch
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def batched_track_frame(left: torch.Tensor, pyr_prev: Sequence[torch.Tensor], fs, map_state,
-                        intr: Intrinsics, cfg: SlamConfig, kf_sub: int):
+                        intr: Intrinsics, cfg: SlamConfig, kf_sub: int,
+                        share: Callable[[torch.Tensor], torch.Tensor] = _identity):
     """The batched tracked step up to keyframe service (JAX ``fused`` up to
     its ``lax.cond``): the pyramids of ``left`` (B, H, W), the vmapped
     ``track_step``, the status, the motion clock, the priority and the
     top-``kf_sub`` selection.  Reads nothing back.  ``map_state`` may be a
-    :class:`~stereoslam_tpu_torch.core.frontend.TrackMap`.
+    :class:`~stereoslam_tpu_torch.core.frontend.TrackMap`.  ``share`` turns
+    the outcome rows of this call's sequences (the priority in the
+    ``serviced`` column) into those of the whole batch (a sum over the
+    ranks of a mesh's data axis), before the selection.
 
     Returns (fs with each sequence's status, the (B, ...) pyramid, the
-    packed float32 outcome (B, len(OUTCOME_COLUMNS)): num_inliers,
-    num_tracked, status, make_kf, serviced, retry, deep)."""
+    packed float32 outcome of the whole batch (B, len(OUTCOME_COLUMNS)):
+    num_inliers, num_tracked, status, make_kf, serviced, retry, deep)."""
     f = cfg.features
     dev = left.device
     pyr = build_lk_pyramid(left, cfg.tracking.lk_levels)
@@ -182,10 +227,14 @@ def batched_track_frame(left: torch.Tensor, pyr_prev: Sequence[torch.Tensor], fs
     # descending sort gives ties to the lower index, as lax.top_k does.
     prio = torch.where(make_kf, since + 10000 * (status == TRACKING_BAD).to(torch.int32),
                        torch.full_like(since, -1))
-    sub_idx = torch.sort(prio, descending=True, stable=True).indices[:kf_sub]
-    serviced = torch.zeros_like(make_kf).index_copy(0, sub_idx, make_kf.index_select(0, sub_idx))
-    packed = torch.stack([n_inl, out.num_tracked, status, make_kf, serviced, out.retry, out.deep],
-                         dim=1).to(torch.float32)
+    packed = share(torch.stack([n_inl, out.num_tracked, status, make_kf, prio, out.retry,
+                                out.deep], dim=1).to(torch.float32))
+    col = OUTCOME_COLUMNS.index("serviced")
+    # The priorities are small integers, exact in float32.
+    sub_idx = torch.sort(packed[:, col], descending=True, stable=True).indices[:kf_sub]
+    make_all = packed[:, OUTCOME_COLUMNS.index("make_kf")]
+    serviced = torch.zeros_like(make_all).index_copy(0, sub_idx, make_all.index_select(0, sub_idx))
+    packed = torch.cat([packed[:, :col], serviced[:, None], packed[:, col + 1:]], dim=1)
     return fs2, pyr, packed
 
 
@@ -267,6 +316,11 @@ class MultiSeqVO:
     a step (see the module docstring).  Outcomes retire ``readback_lag``
     steps late; detected loops are verified and corrected per sequence
     through the single-sequence stages.
+
+    With a ``mesh`` this rank holds the sequences ``self.rows`` of the
+    batch: ``fs``, ``maps`` and ``loopdb`` carry ``len(self.rows)`` on their
+    leading dim, while ``alive``, the returned counts and the sequence
+    arguments of the accessors are over all ``batch`` sequences.
     """
 
     def __init__(self, cfg: SlamConfig, batch: int, mesh=None, readback_lag: Optional[int] = None,
@@ -276,20 +330,28 @@ class MultiSeqVO:
         """``device``: the card unless the caller asks for ``"cpu"`` (which
         runs the plain versions of the kernels and the step without a
         graph).  ``readback_lag``: steps between a step and its retire
-        (default 0 on the CPU, 4 on the card, as in JAX)."""
-        if mesh is not None:
-            raise NotImplementedError("MultiSeqVO(mesh=...) shards the batch over several "
-                                      "devices; multi-device is not ported to "
-                                      "stereoslam_tpu_torch yet")
+        (default 0 on the CPU, 4 on the card, as in JAX).  ``mesh``: a
+        ``DeviceMesh`` whose data axis shards the batch (``batch`` must be a
+        multiple of its size; see the module docstring)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MultiSeqVO runs on the card by default and no CUDA device is "
                                "available: pass device='cpu' to run on the CPU")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a MultiSeqVO on {self.device}")
         if cfg.camera.need_undistortion:
-            raise NotImplementedError("undistortion is not ported to stereoslam_tpu_torch yet")
+            log.warning("MultiSeqVO reads only the pinhole intrinsics of cfg.camera: the batched "
+                        "mode does not undistort, as the JAX package's does not")
         cfg.validate()
         self.cfg = cfg
         self.batch = int(batch)
+        self.mesh = mesh
+        dp = 1 if mesh is None else axis_size(mesh, "data")
+        if self.batch % dp:
+            raise ValueError(f"a batch of {self.batch} does not split over the mesh's {dp} data "
+                             f"ranks")
+        lo = 0 if mesh is None else axis_index(mesh, "data") * (self.batch // dp)
+        self.rows = range(lo, lo + self.batch // dp)
         self.enable_backend = enable_backend
         self.enable_loop = enable_loop
         self.verify_loops = bool(verify_loops and enable_loop)
@@ -317,7 +379,7 @@ class MultiSeqVO:
         self._vcfg = cfg.replace(features=dataclasses.replace(cfg.features,
                                                               n_levels=max(1, orb_levels)))
         dev = self.device
-        B = self.batch
+        B = len(self.rows)
         self.fs = _broadcast(init_frontend_state(cfg, dev), B)
         self.maps = _broadcast(init_map_state(cfg, dev), B)
         K, D = cfg.map.max_keyframes, cfg.loop.descriptor_dim
@@ -342,15 +404,15 @@ class MultiSeqVO:
             # the reduced-pyramid config and the batched detector's model.
             self._lc = LoopCloser(self._vcfg, self.intr, dev, descriptor_model=self.model)
             self._lc.generator = torch.Generator(device=dev).manual_seed(23)
-        self.alive = np.ones(B, bool)
-        self.loop_closures: List[List[Tuple[int, int]]] = [[] for _ in range(B)]
+        self.alive = np.ones(self.batch, bool)
+        self.loop_closures: List[List[Tuple[int, int]]] = [[] for _ in range(self.batch)]
         self._pyr_prev = None
         self._last_counts: Optional[np.ndarray] = None
         self._bad = cfg.features.num_features_tracking_bad
         self.graph = TrackGraph(cfg, self.intr, dev, frame_fn=self._frame)
         if dev.type == "cuda":
-            self._host_outcome = torch.empty((B, len(OUTCOME_COLUMNS)), dtype=torch.float32,
-                                             pin_memory=True)
+            self._host_outcome = torch.empty((self.batch, len(OUTCOME_COLUMNS)),
+                                             dtype=torch.float32, pin_memory=True)
             self._outcome_landed = torch.cuda.Event()
         else:
             self._host_outcome = None
@@ -365,16 +427,30 @@ class MultiSeqVO:
         # "retire" (liveness and loop events).
         self.stage_s = defaultdict(list)
 
+    def _share(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's per-sequence rows -> the whole batch's (one sum over
+        the mesh's data axis; the rows themselves without a mesh)."""
+        return rows if self.mesh is None else host_local_array(self.mesh, "data", rows)
+
     def _frame(self, lr_u8, pyr_prev, fs, track_map):
         """The graph's frame function: the batched tracked step."""
         left = lr_u8[:, 0].to(torch.float32)
         fs2, pyr, packed = batched_track_frame(left, pyr_prev, fs, track_map, self.intr,
-                                               self._run_cfg, self.kf_sub)
+                                               self._run_cfg, self.kf_sub, share=self._share)
         return left, fs2, pyr, packed
+
+    def _local(self, seq: int) -> int:
+        """This rank's index of sequence ``seq`` of the batch."""
+        if seq not in self.rows:
+            raise ValueError(f"sequence {seq} is held by another rank (this one holds "
+                             f"{self.rows.start}..{self.rows.stop - 1})")
+        return seq - self.rows.start
 
     # ------------------------------------------------------------------
     def _stack(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
-        lr = np.stack([np.asarray(left), np.asarray(right)], axis=1).astype(np.uint8)
+        """This rank's rows of a host (B, H, W) stereo batch, stacked on the device."""
+        rows = slice(self.rows.start, self.rows.stop)
+        lr = np.stack([np.asarray(left)[rows], np.asarray(right)[rows]], axis=1).astype(np.uint8)
         return torch.from_numpy(lr).to(self.device)
 
     def initialize(self, left: np.ndarray, right: np.ndarray, ts) -> np.ndarray:
@@ -383,11 +459,12 @@ class MultiSeqVO:
         initialization keyframe runs no BA and enters no loop database, as
         in JAX."""
         lr = self._stack(left, right)
+        ts = np.asarray(ts)[self.rows.start:self.rows.stop]
         left_f = lr[:, 0].to(torch.float32)
         right_f = lr[:, 1].to(torch.float32)
         levels = self._run_cfg.tracking.lk_levels
-        n_lm = np.zeros(self.batch, np.int64)
-        for b in range(self.batch):
+        n_lm = torch.zeros(len(self.rows), dtype=torch.float32, device=self.device)
+        for b in range(len(self.rows)):
             t = torch.full((), float(ts[b]), dtype=torch.float32, device=self.device)
             fs_b, m_b, _, n = frontend_mod.stereo_init_step(
                 left_f[b], build_lk_pyramid(left_f[b], levels),
@@ -395,23 +472,33 @@ class MultiSeqVO:
                 self.intr, self.intr_right, self._run_cfg.camera.baseline, t, self._run_cfg)
             _put(self.fs, b, fs_b)
             _put(self.maps, b, m_b)
-            n_lm[b] = int(n)
+            n_lm[b] = n
         self._pyr_prev = build_lk_pyramid(left_f, levels)
-        return n_lm
+        return self._share(n_lm).cpu().numpy().astype(np.int64)
 
     def process_frames(self, left: np.ndarray, right: np.ndarray, ts) -> np.ndarray:
         """One step of the whole batch from host (B, H, W) images; see
         :meth:`process_staged` (a :class:`~stereoslam_tpu_torch.utils.feed.BatchFeed`
-        stages the stacks ahead instead)."""
-        return self.process_staged(self._stack(left, right), ts)
+        stages the stacks ahead instead).  With a mesh, only this rank's rows
+        go to the device."""
+        return self._step(self._stack(left, right), np.asarray(ts)[self.rows.start:self.rows.stop])
 
     def process_staged(self, lr_u8: torch.Tensor, ts) -> np.ndarray:
         """One step whose (B, 2, H, W) uint8 stack already lies on the
-        device; ``ts``: B timestamps on the host.
+        device; ``ts``: B timestamps on the host.  With a mesh, only this
+        rank's rows of the stack are read.
 
         Returns the most recently retired per-sequence inlier counts: under
         lag N they describe step t-N (with lag 0 they are exactly current);
         before anything retired, counts above the BAD threshold."""
+        if self.mesh is not None:
+            lr_u8 = lr_u8[self.rows.start:self.rows.stop]
+            ts = np.asarray(ts)[self.rows.start:self.rows.stop]
+        return self._step(lr_u8, ts)
+
+    def _step(self, lr_u8: torch.Tensor, ts) -> np.ndarray:
+        """One step of this rank's sequences: their (B, 2, H, W) stack on the
+        device and their timestamps."""
         if self._pyr_prev is None:
             raise RuntimeError("MultiSeqVO.initialize must run before the first step")
         t0 = time.perf_counter()
@@ -430,11 +517,12 @@ class MultiSeqVO:
         counts[:, :3] = o[:, :3]
         counts[:, 3] = -1
         detect = None
-        serviced = np.nonzero(o[:, OUTCOME_COLUMNS.index("serviced")])[0]
+        serviced = np.nonzero(o[self.rows.start:self.rows.stop,
+                                OUTCOME_COLUMNS.index("serviced")])[0]
         t3 = time.perf_counter()
         if serviced.size:
             kf_ids, detect = self._service_keyframes(serviced, lr_u8, left, pyr, ts)
-            counts[:, 3] = kf_ids
+            counts[self.rows.start:self.rows.stop, 3] = kf_ids
         self._inflight.append(_Entry(counts, detect))
         t4 = time.perf_counter()
         self._retire_beyond(self.readback_lag)
@@ -455,12 +543,13 @@ class MultiSeqVO:
         return packed.numpy().astype(np.int64)
 
     def _service_keyframes(self, serviced: np.ndarray, lr_u8, left, pyr, ts):
-        """Keyframe work of the selected sequences (JAX ``kf_service``),
-        written into the batched state in place, then loop detection over
-        the batch.  Returns (kf id per sequence, -1 where none; the
-        detection (B, 2) on the device, or None without loop closing)."""
+        """Keyframe work of the selected sequences (JAX ``kf_service``; this
+        rank's indices), written into the batched state in place, then loop
+        detection over this rank's sequences.  Returns (kf id per sequence,
+        -1 where none; the detection (B, 2) on the device, or None without
+        loop closing)."""
         cfg, dev = self._run_cfg, self.device
-        B = self.batch
+        B = len(self.rows)
         kf_ids = np.full(B, -1, np.int64)
         desc = torch.zeros((B, cfg.loop.descriptor_dim), dtype=torch.float32, device=dev)
         for b in serviced.tolist():
@@ -511,13 +600,14 @@ class MultiSeqVO:
             detect, landed = entry.detect
             if landed is not None:
                 landed.synchronize()
-            c[:, 4:] = detect.numpy()
+            c[self.rows.start:self.rows.stop, 4:] = detect.numpy()
             self.detect_reads += 1
         self._last_counts = c
         self.alive &= c[:, 0] > self._bad
         if self.verify_loops:
-            for b in np.nonzero(c[:, 4] > 0)[0]:
-                self._service_loop_event(int(b), int(c[b, 3]), int(c[b, 5]))
+            mine = c[self.rows.start:self.rows.stop]
+            for b in np.nonzero(mine[:, 4] > 0)[0]:
+                self._service_loop_event(int(b), int(mine[b, 3]), int(mine[b, 5]))
 
     def _loop_state(self, b: int) -> LoopState:
         """Sequence ``b``'s loop database as a single-sequence LoopState."""
@@ -528,8 +618,8 @@ class MultiSeqVO:
                          last_closed_kf=ldb.last_closed[b])
 
     def _service_loop_event(self, b: int, kf_id: int, loop_kf: int) -> None:
-        """Verify and correct a detected loop of sequence ``b`` through the
-        single-sequence stages (JAX ``_service_loop_event``)."""
+        """Verify and correct a detected loop of this rank's sequence ``b``
+        through the single-sequence stages (JAX ``_service_loop_event``)."""
         lc = self._lc
         lp_b = self._loop_state(b)
         verify, packed, m_b = lc._verify_impl(_take(self.maps, b), lp_b, kf_id, loop_kf)
@@ -560,7 +650,7 @@ class MultiSeqVO:
             self.fs.tracks.lm_idx[b].copy_(tr_b.lm_idx)
         _put(self.maps, b, m_b)
         self.loopdb.last_closed[b] = kf_id
-        self.loop_closures[b].append((kf_id, loop_kf))
+        self.loop_closures[self.rows.start + b].append((kf_id, loop_kf))
 
     def drain(self) -> None:
         """Retire every in-flight step (call before reading state)."""
@@ -569,15 +659,18 @@ class MultiSeqVO:
     # ------------------------------------------------------------------
     def loop_edges(self, seq: int) -> List[Tuple[int, int]]:
         """Detected loop pairs [(kf_id, loop_kf), ...] of sequence ``seq``
-        (drain first for exact results)."""
+        (drain first for exact results; with a mesh, one of ``self.rows``)."""
+        b = self._local(seq)
         if self.loopdb is None:
             return []
-        lw = self.loopdb.loop_with[seq].cpu().numpy()
+        lw = self.loopdb.loop_with[b].cpu().numpy()
         return [(int(i), int(lw[i])) for i in np.nonzero(lw >= 0)[0]]
 
     def keyframe_trajectory(self, seq: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(kf_ids, positions (n, 3)) of sequence ``seq``'s keyframes."""
-        n_kf = int(self.maps.n_kf[seq])
-        T = self.maps.kf_T_cw[seq][:n_kf].cpu().numpy().astype(np.float64)
+        """(kf_ids, positions (n, 3)) of sequence ``seq``'s keyframes (with
+        a mesh, one of ``self.rows``)."""
+        b = self._local(seq)
+        n_kf = int(self.maps.n_kf[b])
+        T = self.maps.kf_T_cw[b][:n_kf].cpu().numpy().astype(np.float64)
         pos = np.stack([np.linalg.inv(t)[:3, 3] for t in T]) if n_kf else np.zeros((0, 3))
         return np.arange(n_kf), pos

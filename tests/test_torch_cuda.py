@@ -548,3 +548,118 @@ def test_calc_training_step_on_card_matches_cpu(dev):
     for k, g in g_cpu.items():
         cos = float(g_card[k] @ g / (g_card[k].norm() * g.norm()))
         assert cos >= (0.999 if k.startswith("dense") else 0.9999), (k, cos)
+
+
+# ---------------------------------------------------------------------------
+# Multi-device at world size 1 on the card (parallel/)
+# ---------------------------------------------------------------------------
+
+def test_mesh_constructors_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without a card, ``make_mesh()`` and ``initialize()`` on the card raise,
+    and so do the facades given a CPU mesh but no device; a CPU mesh works.
+    It runs before the tests below make the card's world of one."""
+    import torch.distributed as dist
+
+    from stereoslam_tpu_torch.parallel import distributed
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+    from stereoslam_tpu_torch.parallel.multiseq import MultiSeqVO
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed.initialize("file:///nonexistent/store", world_size=2, rank=0)
+    assert not distributed.initialize()   # one process: nothing to join
+    cfg = pconfig.SlamConfig(image_height=240, image_width=376)
+    m = make_mesh(device_type="cpu")
+    try:
+        for make in (lambda: StereoSlam(cfg, mesh=m), lambda: MultiSeqVO(cfg, batch=2, mesh=m)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        assert StereoSlam(cfg, device="cpu", enable_loop=False, mesh=m).inline_ba is False
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh(dev):
+    """A mesh of the card alone: NCCL over a world of one."""
+    import torch.distributed as dist
+
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+
+    created = not dist.is_initialized()
+    m = make_mesh()
+    yield m
+    if created:
+        dist.destroy_process_group()
+
+
+def test_sharded_search_on_the_card_equals_the_dense_scan(mesh, dev):
+    """The search over a 1536 x 1064 database: the same id, score bits and
+    suspect count as the loop closer's dense scan."""
+    from stereoslam_tpu_torch.parallel.dist_lcd import sharded_descriptor_search
+
+    g = torch.Generator().manual_seed(5)
+    db = torch.randn(1536, 1064, generator=g)
+    db[300] = db[1200] + 0.3 * torch.randn(1064, generator=g)
+    db = (db / db.norm(dim=1, keepdim=True)).to(dev)
+    valid = (torch.arange(1536) <= 1200).to(dev)
+    res = sharded_descriptor_search(db, valid, db[1200], 1200 - 20 + 1, 0.05, mesh)
+    scores = db @ db[1200]
+    ids = torch.arange(1536, device=dev)
+    scores = torch.where(valid & ((1200 - ids) >= 20), scores, torch.full_like(scores, -1.0))
+    best = torch.argmax(scores)
+    assert int(res.best_id) == int(best) == 300
+    assert torch.equal(res.best_score, scores[best])
+    assert int(res.n_suspect) == int((scores > 0.05).sum())
+
+
+def _circle_graph_numpy(seed: int = 0):
+    """tests/test_parallel.py:182's drifted circle (40 vertices in 48 rows,
+    96 edge rows), its odometry noise drawn with the port's se3."""
+    from stereoslam_tpu_torch.ops import se3
+
+    rng = np.random.default_rng(seed)
+    K, n = 48, 40
+    gt = []
+    for i in range(n):
+        c, s = np.cos(2 * np.pi * i / n), np.sin(2 * np.pi * i / n)
+        T_wc = np.eye(4)
+        T_wc[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        T_wc[:3, 3] = [5.0 * (1 - c), 0, 5.0 * s]
+        gt.append(np.linalg.inv(T_wc))
+    gt = np.stack(gt).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    E = 2 * K
+    edge_i, edge_j = np.zeros(E, np.int32), np.zeros(E, np.int32)
+    meas = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
+    edge_valid = np.zeros(E, bool)
+    poses[0] = gt[0]
+    for i in range(1, n):
+        noise = se3.exp(torch.from_numpy((rng.standard_normal(6) * 0.01).astype(np.float32)))
+        meas[i] = noise.numpy() @ gt[i] @ np.linalg.inv(gt[i - 1])
+        poses[i] = meas[i] @ poses[i - 1]
+        edge_i[i], edge_j[i], edge_valid[i] = i, i - 1, True
+    edge_i[n], edge_j[n], edge_valid[n] = n - 1, 0, True
+    meas[n] = gt[n - 1] @ np.linalg.inv(gt[0])
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    fixed[n:] = True
+    return dict(poses=poses, vertex_valid=np.arange(K) < n, fixed=fixed, edge_i=edge_i,
+                edge_j=edge_j, edge_meas=meas, edge_valid=edge_valid)
+
+
+def test_sharded_pgo_on_the_card_equals_the_dense_solver(mesh, dev):
+    """World size 1: the sharded solver (fixed CG steps frozen by a device
+    flag, no host read per iteration) equals ``optimize_pose_graph`` with the
+    sharded exit rules bit for bit."""
+    from stereoslam_tpu_torch import bridge
+    from stereoslam_tpu_torch.ops.pgo import optimize_pose_graph
+    from stereoslam_tpu_torch.parallel.dist_pgo import optimize_pose_graph_sharded
+
+    graph = bridge.pose_graph_from_numpy(_circle_graph_numpy(), dev)
+    sharded = optimize_pose_graph_sharded(graph, mesh, gn_iters=4)
+    dense = optimize_pose_graph(graph, gn_iters=4, cg_rtol=1e-12, gn_xtol=-1)
+    assert torch.equal(sharded, dense)

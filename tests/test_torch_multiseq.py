@@ -376,5 +376,17 @@ def test_multiseq_needs_the_card_or_the_cpu(seqs, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pms.MultiSeqVO(cfg, batch=2)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        pms.MultiSeqVO(cfg, batch=2, mesh=object(), device="cpu")
+    # With a mesh (parallel/mesh.py) too; a CPU mesh over a world of one.
+    import torch.distributed as dist
+
+    from stereoslam_tpu_torch.parallel.mesh import make_mesh
+
+    created = not dist.is_initialized()
+    mesh = make_mesh(device_type="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pms.MultiSeqVO(cfg, batch=2, mesh=mesh)
+        assert pms.MultiSeqVO(cfg, batch=2, mesh=mesh, device="cpu").rows == range(2)
+    finally:
+        if created:
+            dist.destroy_process_group()
