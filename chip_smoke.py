@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # the full run: VO, CLI, undistortion, CALC, CALC
+    python3 chip_smoke.py                # the full run: VO, BA, CLI, undistortion, CALC, CALC
                                          # training, Caffe, loop-closing, world, endurance,
                                          # multi-sequence and multi-device
     python3 chip_smoke.py --profile 20   # also profile 20 more VO frames (torch.profiler)
@@ -38,8 +38,22 @@ failure:
              ``readback_lag=10`` and ``process_chunk`` (C=8) against phase
              main's keyframes and trajectory; the keyframe-free frame eager
              against replayed, interleaved: wall time, device time, busy
-             share.
-6. cli     — the user's entry point, ``stereoslam_tpu_torch.run``: writes phase
+             share; ``ops/svd.py`` against ``torch.linalg.svd`` (bit for
+             bit, float32 and float64).
+6. ba      — the windowed BA as one CUDA graph (``core/graphs.py``
+             ``BAGraph``) and the asynchronous BA: (a) on phase main's
+             final map, the replay against the eager ``optimize_active_map``
+             and the fixed steps against the early exit (every output
+             field, bit for bit), no host read (sync-debug "error"), the
+             early exit's steps, the replay, the eager early exit and the
+             eager fixed steps timed in turns; (b) phase main's frames
+             through ``StereoSlam(inline_ba=False)`` at lag 0 and 10, twice
+             each: no LOST, keyframes in band, ATE, bit-for-bit repeats,
+             the launches, and the BA's overlap with tracked frames (CUDA
+             events); (c) the inline BA through the graph against the
+             eager early exit in turns: keyframe frame time, host syncs,
+             and every run equal to phase main's.
+7. cli     — the user's entry point, ``stereoslam_tpu_torch.run``: writes phase
              main's 100 frames as a KITTI directory (8-bit grey PNGs by a
              stdlib writer, ``times.txt``, a poses file, the config as
              OpenCV YAML, which must load back equal to phase main's);
@@ -52,7 +66,7 @@ failure:
              stereoslam_tpu_torch.run`` with the default flags (loop closing
              with trained CALC) on 40 frames as a subprocess and checks its
              files; checks phase main's profiler records.
-7. undistort — bench.py's undistortion-ON configuration (k1 -0.28, k2 0.07
+8. undistort — bench.py's undistortion-ON configuration (k1 -0.28, k2 0.07
              on both cameras) on phase main's frames: the remapped pair on
              the card against the plain CPU remap, its device time, a timed
              run beside phase main's configuration run right after it, no
@@ -62,11 +76,11 @@ failure:
              the pinned run, then a checking run: replay against the eager
              ``track_frame`` on 3 frames (bit for bit), one host read per
              keyframe-free frame, and the same trajectory.
-8. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
+9. calc    — the shipped trained CALC encoder (``preprocess`` + ``CalcEncoder``)
              and the HOG descriptor on one 376x1241 keyframe image, on the
              card against the same module on the CPU (float32, TF32 off),
              with each one's device time per call.
-9. train   — CALC training (``models/train_calc.py``) at CALC's widths and
+10. train   — CALC training (``models/train_calc.py``) at CALC's widths and
              the default run's batch (64), geometries and loss settings:
              (a) the shipped weights through the port on the card against
              ``tests/test_descriptor_precision.py``'s five bars (seed 555,
@@ -81,14 +95,14 @@ failure:
              second and the device busy share over 50 steps; (d) the
              float16 npz round trip into ``DescriptorModel``.  The full run
              is ``scripts/torch_train_calc_default.py``'s.
-10. caffe  — a CALC-shaped Caffe net written from a seed (deploy.prototxt and
+11. caffe  — a CALC-shaped Caffe net written from a seed (deploy.prototxt and
              calc.caffemodel: 1x1x120x160 input, Convolution/ReLU/Pooling/LRN,
              a 1064-value last blob): the importer's runner on the card
              against the CPU; ``StereoSlam`` with the files in
              ``cfg.loop.caffe_*`` over 40 of phase main's frames, loop
              closing on, every stored keyframe descriptor equal to the runner
              on that keyframe's preprocessed left image.
-11. loop   — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
+12. loop   — ``StereoSlam(cfg, device="cuda", enable_loop=True)`` with the HOG
              descriptor over a closed blob-world circuit at KITTI geometry,
              with the full-size state (400 features x 8 ORB levels, 1536
              keyframe rows, 131,072 landmark rows); checks no LOST, a true
@@ -96,7 +110,7 @@ failure:
              through ``lk_pyramid``, and that the run repeats the port's
              known one; prints FPS, per-stage keyframe times and PGO
              iterations.
-12. world  — the canonical 548-frame world circuit of ``run_world_eval``
+13. world  — the canonical 548-frame world circuit of ``run_world_eval``
              (240x376, trained CALC at the shipped 0.94/0.92 thresholds):
              renders it on the card and holds four frames of each camera to
              the CPU render; checks ``DeviceFeed`` over 50 host frames; runs
@@ -111,7 +125,7 @@ failure:
              checkpoint into a fresh ``StereoSlam``; prints FPS, p50, ATE,
              edges, per-stage keyframe times, and the refused loop
              verifications by the guard that refused them.
-13. endurance — (a) ``run_endurance(device="cuda")`` cut from 10.8 laps to 2
+14. endurance — (a) ``run_endurance(device="cuda")`` cut from 10.8 laps to 2
              (843 frames): tracking at least as far as the JAX package's CPU
              run of the same frames (LOST at frame 678), every loop edge a
              true revisit with an id gap >= 20, FPS, p50 over the first and
@@ -122,7 +136,7 @@ failure:
              after each compaction replayed bit for bit as the eager
              ``track_frame``, no live track left on a freed row.  The full
              run is ``scripts/torch_endurance.py``'s.
-14. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
+15. multiseq — the batched multi-sequence mode (``parallel/multiseq.py``
              ``MultiSeqVO``): (a) one batched ``lk_pyramid`` launch at bench.py
              Phase M's shapes (B=8, 240x376, 3 levels, 400 slots a sequence)
              against 8 single launches (bit for bit), with a mixed gate
@@ -131,7 +145,10 @@ failure:
              sequences, 72 frames, 16 warm-up, ``BatchFeed``, the defaults):
              no LOST, >= 3 keyframes a sequence, at most ``kf_sub`` a step,
              one graph replay a step, the batched LK launch on every step,
-             the pinned per-sequence (KFs, ATE); then a checking run: replay
+             the pinned per-sequence (KFs, ATE); the keyframe service with
+             its BA through the BA graph against the eager early exit in
+             one process (host ms a step, the maps bit for bit); then a checking
+             run: replay
              against the eager batched step (bit for bit), each sequence's
              batched step against the single-sequence ``track_frame``
              (flags equal, tracks and ``T_rk`` within tolerances), one host
@@ -141,7 +158,7 @@ failure:
              (``scripts/torch_multiseq_world.py``: two world circuits loop ON
              and OFF): no LOST, every edge a true revisit, ATE ON <= OFF a
              sequence, printed beside the TPU record with the refusals.
-15. dist   — multi-device (``parallel/``): (a) one rank on NCCL (a mesh of the
+16. dist   — multi-device (``parallel/``): (a) one rank on NCCL (a mesh of the
              card alone): the sharded descriptor search over the full
              1536x1064 database against the dense scan (equal id, score and
              count), the sharded PGO on a graph of the endurance run's size
@@ -151,14 +168,14 @@ failure:
              truth, each op's time; (b) two Gloo ranks on the one card, in
              processes of their own, on the same inputs, held to (a) within
              the CPU tests' tolerances; (c) ``StereoSlam(mesh=make_mesh())``
-             over phase loop's circuit (the BA at retire): no LOST, true
+             over phase loop's circuit (the asynchronous BA): no LOST, true
              edges with an id gap >= 20, ATE, ``lk_pyramid`` on every tracked
              frame and no per-level launch, the pinned run; the correction
              at the last edge on the final state through the sharded PGO
              (30 GN x 512 CG in full) against the dense one, timed; (d) ``MultiSeqVO(mesh=make_mesh(dp=1))``
              at Phase M: every sequence as phase multiseq's pinned run, one
              graph replay a step (the step's NCCL sum inside the graph).
-16. profile — with ``--profile N``: device busy share, the top kernels, the
+17. profile — with ``--profile N``: device busy share, the top kernels, the
              LK kernels' self device time per launch, host syncs per frame
              for keyframe, replenish and keyframe-free frames.
 
@@ -808,26 +825,34 @@ def time_frames(fn, reps: int):
     return wall, span, kern
 
 
-def check_svd(dev) -> None:
+def check_svd(dev, phase: str) -> None:
     """ops/svd.py's cuSOLVER call (no host read) against torch.linalg.svd,
-    bit for bit, on 3x3 matrices one at a time (the tracked frame's shape)
-    and in a batch: rotations off by 1e-7 to 1 of noise."""
+    bit for bit, on 3x3 matrices one at a time (the tracked frame's float32
+    pose), in batches of 7 (the windowed BA's float64 window) and in one
+    batch: rotations off by 1e-7 to 1 of noise, in float32 and float64."""
     from stereoslam_tpu_torch.ops.svd import svd
 
-    gen = torch.Generator(device=dev).manual_seed(5)
-    mats = []
-    for scale in (1e-7, 1e-6, 1e-3, 1.0):
-        q, _ = torch.linalg.qr(torch.randn(50, 3, 3, device=dev, generator=gen))
-        mats.append(q * torch.sign(torch.linalg.det(q))[:, None, None]
-                    + scale * torch.randn(50, 3, 3, device=dev, generator=gen))
-    mats = torch.cat(mats)
-    same = all(all(torch.equal(x, y) for x, y in zip(svd(m), torch.linalg.svd(m))) for m in mats)
-    same_batch = all(torch.equal(x, y) for x, y in zip(svd(mats), torch.linalg.svd(mats)))
-    print(f"pipeline: ops/svd.py svd against torch.linalg.svd on {len(mats)} 3x3 float32 "
-          f"matrices: {'bit-identical' if same else 'DIFFER'} one at a time, "
-          f"{'bit-identical' if same_batch else 'DIFFER'} as a batch", flush=True)
-    if not (same and same_batch):
-        fail("pipeline", "svd", "ops/svd.py's cuSOLVER call differs from torch.linalg.svd")
+    def same(m):
+        return all(torch.equal(x, y) for x, y in zip(svd(m), torch.linalg.svd(m)))
+
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        mats = []
+        for scale in (1e-7, 1e-6, 1e-3, 1.0):
+            q, _ = torch.linalg.qr(torch.randn(49, 3, 3, device=dev, dtype=dtype, generator=gen))
+            mats.append(q * torch.sign(torch.linalg.det(q))[:, None, None]
+                        + scale * torch.randn(49, 3, 3, device=dev, dtype=dtype, generator=gen))
+        mats = torch.cat(mats)
+        one = all(same(m) for m in mats)
+        sevens = all(same(m) for m in mats.reshape(-1, 7, 3, 3))
+        batch = same(mats)
+        print(f"{phase}: ops/svd.py svd against torch.linalg.svd on {len(mats)} 3x3 {dtype} "
+              f"matrices: {'bit-identical' if one else 'DIFFER'} one at a time, "
+              f"{'bit-identical' if sevens else 'DIFFER'} in batches of 7, "
+              f"{'bit-identical' if batch else 'DIFFER'} as one batch", flush=True)
+        if not (one and sevens and batch):
+            fail(phase, "svd", f"ops/svd.py's cuSOLVER call differs from torch.linalg.svd "
+                 f"in {dtype}")
 
 
 def phase_pipeline(dev, seq, main_slam, card: str) -> None:
@@ -842,7 +867,7 @@ def phase_pipeline(dev, seq, main_slam, card: str) -> None:
 
     cfg = kitti_config(seq)
     n = len(seq.left)
-    check_svd(dev)
+    check_svd(dev, "pipeline")
     staged = [torch.from_numpy(np.stack([seq.left[t], seq.right[t]]).astype(np.uint8)).to(dev)
               for t in range(n)]
     torch.cuda.synchronize()
@@ -951,6 +976,321 @@ def phase_pipeline(dev, seq, main_slam, card: str) -> None:
               f"{kern / wall:.1%} (track_frame and its outcome read; replayed adds the copy-in; "
               f"{PIPE_TIMING_REPS} calls each) [{card}]", flush=True)
     print(f"pipeline: the timing took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase ba: the windowed BA as one CUDA graph, and the asynchronous BA
+# ---------------------------------------------------------------------------
+
+BA_LAGS = (0, 10)
+BA_REPLAYS = 10       # BA graph replays timed back to back
+BA_EAGER_REPS = 3     # eager BA calls timed back to back
+
+
+class SyncError:
+    """torch's sync-debug mode at "error": a host read raises."""
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def ba_fields_equal(a, b) -> bool:
+    from stereoslam_tpu_torch.core.backend import BA_OUTPUTS
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in BA_OUTPUTS)
+
+
+def check_ba_graph(dev, cfg, m0, intr, card: str) -> None:
+    """(a) On phase main's final map: the BA graph's replay against the eager
+    optimize_active_map, the fixed-step driver against the early-exit one
+    (every output field, bit for bit), no host read in the eager fixed-step
+    BA nor in a replay, the early exit's steps, and the times."""
+    from stereoslam_tpu_torch.core import backend as B
+    from stereoslam_tpu_torch.core.graphs import BAGraph
+    from stereoslam_tpu_torch.ops import schur
+
+    steps = []
+    real = schur._lm_step
+    schur._lm_step = lambda *a: (steps.append(1), real(*a))[1]
+    try:
+        early = B.optimize_active_map(m0, intr, cfg, host_exit=True)
+    finally:
+        schur._lm_step = real
+    try:
+        with SyncError():
+            fixed = B.optimize_active_map(m0, intr, cfg)
+        g = BAGraph(cfg, intr, dev)
+        g(m0)  # the capture, after its warm-up
+        with SyncError():
+            replay = g(m0)
+    except RuntimeError as e:
+        fail("ba", "(a) host read", f"the BA on the card read the host: {e}")
+    torch.cuda.synchronize()
+    fixed_early, replay_fixed = ba_fields_equal(fixed, early), ba_fields_equal(replay, fixed)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    src = B.BAMap.of(m0)
+    w = cfg.backend
+
+    def replays() -> tuple:
+        """(device ms a replay by CUDA events around BA_REPLAYS back to back,
+        host ms a replay to enqueue them)."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(BA_REPLAYS):
+            g.run(src)
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3 / BA_REPLAYS
+        end.synchronize()
+        return start.elapsed_time(end) / BA_REPLAYS, host
+
+    def fixed_ms() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        B.optimize_active_map(m0, intr, cfg)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def early():
+        return time_frames(lambda: B.optimize_active_map(m0, intr, cfg, host_exit=True),
+                           BA_EAGER_REPS)
+
+    # In turns: replay, early exit, fixed steps, fixed steps, early exit, replay.
+    times = [replays(), early(), fixed_ms(), fixed_ms(), early(), replays()]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.run(src)
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kern)
+    print(f"ba: (a) on phase main's final map (W={m0.active_kf.shape[0]}, N="
+          f"{m0.kf_feat_valid.shape[1]}): the graph's replay against the eager "
+          f"optimize_active_map {'bit-identical' if replay_fixed else 'DIFFER'}, the fixed "
+          f"{w.ba_rounds}x{w.ba_iters} steps against the early exit "
+          f"{'bit-identical' if fixed_early else 'DIFFER'} (every output field); no host read "
+          f"in the eager fixed-step BA nor in a replay (sync-debug 'error'); the early exit took "
+          f"{len(steps)} LM steps of {w.ba_rounds * w.ba_iters}", flush=True)
+    print(f"ba: (a) BA graph replay with its copy-in: {times[0][0]:.3f}, {times[5][0]:.3f} ms a "
+          f"replay between CUDA events ({BA_REPLAYS} back to back), {times[0][1]:.3f}, "
+          f"{times[5][1]:.3f} ms of host enqueue; the eager fixed steps {times[2]:.1f}, "
+          f"{times[3]:.1f} ms wall (card synchronized) [{card}]", flush=True)
+    for wall, span, k in (times[1], times[4]):
+        print(f"ba: (a) BA eager early exit: {wall:.3f} ms wall, {span:.3f} ms between CUDA "
+              f"events, {k:.3f} ms device kernel time (profiler), device busy {k / wall:.1%} "
+              f"[{card}]", flush=True)
+    print(f"ba: (a) one replay, {sum(e.count for e in kern)} kernels, {total / 1e3:.2f} ms; the "
+          f"top 8 by device time (launches, ms): " + "; ".join(
+              f"{e.key[:70]} ({e.count}, {e.self_device_time_total / 1e3:.2f})" for e in kern[:8])
+          + f" [{card}]", flush=True)
+    if not (fixed_early and replay_fixed):
+        fail("ba", "(a) bit for bit", f"fixed vs early exit {fixed_early}, replay vs eager "
+             f"{replay_fixed}")
+
+
+def ba_async_run(dev, cfg, staged, seq, lag: int, trace: bool):
+    """Phase main's frames, staged in advance, through
+    StereoSlam(inline_ba=False): (slam, seconds, spans).  With ``trace``,
+    CUDA events around every BA replay (on the BA's side stream) and every
+    tracked frame's replay (on the facade's stream), after their captures."""
+    from stereoslam_tpu_torch.core.system import StereoSlam
+
+    slam = StereoSlam(cfg, device=dev, enable_loop=False, inline_ba=False, readback_lag=lag)
+    spans = {"ba": [], "track": []}
+    if trace:
+        for name, graph in (("ba", slam._ba), ("track", slam.track_graph)):
+            def run(*a, _run=graph.run, _name=name, _graph=graph):
+                if _graph.graph is None:
+                    return _run(*a)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _run(*a)
+                end.record()
+                spans[_name].append((start, end))
+                return out
+            graph.run = run
+    base = torch.cuda.Event(enable_timing=True)
+    base.record()
+    t0 = time.perf_counter()
+    for t in range(len(staged)):
+        if not slam.process_staged(staged[t], seq.timestamps[t]):
+            fail("ba", "(b) LOST", f"lag {lag}: LOST retired by frame {t}")
+    slam.frame_trajectory()  # drains: the last BA swapped in
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = {k: [(base.elapsed_time(a), base.elapsed_time(b)) for a, b in v]
+             for k, v in spans.items()}
+    return slam, wall, spans
+
+
+def overlap(spans) -> tuple:
+    """(BA replays that overlap a tracked frame's replay, overlapped ms, BA ms)."""
+    hit, both = 0, 0.0
+    for a, b in spans["ba"]:
+        o = sum(max(0.0, min(b, d) - max(a, c)) for c, d in spans["track"])
+        hit += o > 0
+        both += o
+    return hit, both, sum(b - a for a, b in spans["ba"])
+
+
+def check_ba_async(dev, cfg, staged, seq, card: str) -> int:
+    """(b) Phase main's frames with inline_ba=False at lags 0 and 10, twice
+    each: no LOST, the keyframe band, ATE, bit-for-bit repeats, the graphs
+    and kernels, and the BA's overlap with tracked frames."""
+    from stereoslam_tpu_torch.ops import lk as L
+    from stereoslam_tpu_torch.ops import lk_level as K
+
+    n = len(staged)
+    launches = 0
+    for lag in BA_LAGS:
+        result = []
+        for rep in range(2):
+            reset_counters()
+            slam, wall, spans = ba_async_run(dev, cfg, staged, seq, lag, trace=rep == 0)
+            lk, per_level = L.lk_pyramid.launches, K.lk_level.launches + K.lk_final_error.launches
+            launches += lk
+            n_kf = int(slam.map.n_kf)
+            ids, T = slam.frame_trajectory()
+            kf = slam.keyframe_trajectory()
+            ate = frame_ate(slam, seq)
+            result.append((T, kf))
+            line = (f"ba: (b) inline_ba=False, lag {lag}, run {rep + 1}: {(n - 1) / wall:.2f} FPS "
+                    f"over {n} frames staged in advance (card synchronized at the end), "
+                    f"{n_kf} KFs, {int(slam.map.n_lm)} landmarks, frame ATE {ate:.4f} m, "
+                    f"{slam._ba.replays} BA replays, {slam.track_graph.replays} frame replays, "
+                    f"lk_pyramid {lk}, per-level {per_level}")
+            if rep == 0:
+                hit, both, ba_ms = overlap(spans)
+                line += (f"; {hit} of {len(spans['ba'])} BA replays on the side stream overlap a "
+                         f"tracked frame's replay, {both:.2f} of {ba_ms:.2f} ms of BA overlapped "
+                         f"(CUDA events)")
+                if hit < 1:
+                    fail("ba", "(b) overlap", f"lag {lag}: no BA replay overlapped a tracked frame")
+            print(line + f" [{card}]", flush=True)
+            if not KF_BAND[0] <= n_kf <= KF_BAND[1]:
+                fail("ba", "(b) keyframes", f"lag {lag}: {n_kf} keyframes outside {KF_BAND}")
+            if not ate <= MAX_ATE_M:
+                fail("ba", "(b) ATE", f"lag {lag}: frame ATE {ate:.4f} m exceeds {MAX_ATE_M} m")
+            if slam.track_graph.replays != n - 1 or lk < n - 1 or per_level:
+                fail("ba", "(b) launches", f"lag {lag}: {slam.track_graph.replays} replays, "
+                     f"lk_pyramid {lk}, per-level {per_level} for {n - 1} tracked frames")
+            if slam._ba.replays < n_kf:
+                fail("ba", "(b) BA replays", f"lag {lag}: {slam._ba.replays} for {n_kf} KFs")
+        (Ta, kfa), (Tb, kfb) = result
+        same = np.array_equal(Ta, Tb) and all(np.array_equal(x, y) for x, y in zip(kfa, kfb))
+        print(f"ba: (b) lag {lag}: the two runs {'bit-identical' if same else 'DIFFER'}",
+              flush=True)
+        if not same:
+            fail("ba", "(b) repeat", f"lag {lag}: two runs of the same frames differ")
+    return launches
+
+
+def check_ba_inline(dev, cfg, staged, seq, main_slam, card: str) -> None:
+    """(c) The inline BA through its graph against the eager early-exit BA,
+    in turns in one process: keyframe frames' wall time (card synchronized
+    around each frame) and host syncs, FPS at lag 0 (card synchronized
+    after each frame; in turns) and at lag 10 (at the end; one run each),
+    and the runs bit for bit."""
+    from stereoslam_tpu_torch.core import backend as B
+    from stereoslam_tpu_torch.core.system import StereoSlam
+
+    def facade(kind: str, lag: int = 0):
+        slam = StereoSlam(cfg, device=dev, enable_loop=False, readback_lag=lag)
+        if kind == "eager early exit":
+            slam._ba = functools.partial(B.optimize_active_map, intr=slam.intr_left, cfg=cfg,
+                                         host_exit=True)
+        return slam
+
+    def lagged(kind: str):
+        slam = facade(kind, PIPE_LAG)
+        for t in range(WARMUP):
+            slam.process_staged(staged[t], seq.timestamps[t])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(WARMUP, len(staged)):
+            if not slam.process_staged(staged[t], seq.timestamps[t]):
+                fail("ba", "(c) LOST", f"{kind}, lag {PIPE_LAG}: LOST by frame {t}")
+        slam._drain()
+        torch.cuda.synchronize()
+        return (len(staged) - WARMUP) / (time.perf_counter() - t0), slam.keyframe_trajectory()
+
+    def run(kind: str, count: bool):
+        slam = facade(kind)
+        kf_ms, kf_syncs, frame_ms = [], [], []
+        for t in range(len(staged)):
+            before = (int(slam.map.n_kf), int(slam.map.n_lm))
+            reads = slam.outcome_reads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if count:
+                with SyncCount() as sc:
+                    ok = slam.process_staged(staged[t], seq.timestamps[t])
+            else:
+                ok = slam.process_staged(staged[t], seq.timestamps[t])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            frame_ms.append(dt)
+            if not ok:
+                fail("ba", "(c) LOST", f"{kind}: LOST at frame {t}")
+            if t >= 2 and frame_kind(before, (int(slam.map.n_kf), int(slam.map.n_lm))) == "keyframe":
+                kf_ms.append(dt)
+                if count:
+                    kf_syncs.append(sc.n + slam.outcome_reads - reads)
+        fps = (len(staged) - WARMUP) / (sum(frame_ms[WARMUP:]) / 1e3)
+        return slam.keyframe_trajectory(), kf_ms, kf_syncs, fps
+
+    out = [(kind, count, run(kind, count)) for kind, count in (
+        ("graph", False), ("eager early exit", False), ("eager early exit", True),
+        ("graph", True))]
+    lag = [(kind, lagged(kind)) for kind in ("eager early exit", "graph")]
+    ref = main_slam.keyframe_trajectory()
+    same = all(all(np.array_equal(x, y) for x, y in zip(kf, ref))
+               for kf in [o[2][0] for o in out] + [o[1][1] for o in lag])
+    for kind, (fps, _) in lag:
+        print(f"ba: (c) inline BA through the {kind}, lag {PIPE_LAG}: {fps:.2f} FPS after "
+              f"{WARMUP} warm-up frames (staged in advance, card synchronized at the end) "
+              f"[{card}]", flush=True)
+    for kind, count, (_, kf_ms, syncs, fps) in out:
+        print(f"ba: (c) inline BA through the {kind}, lag 0: {fps:.2f} FPS after {WARMUP} "
+              f"warm-up frames; keyframe frames {np.median(kf_ms):.2f} ms "
+              f"median (min {min(kf_ms):.2f}, max {max(kf_ms):.2f}) over {len(kf_ms)} frames "
+              f"(card synchronized around each)"
+              + (f"; host syncs a keyframe frame {np.mean(syncs):.2f} (min {min(syncs)}, max "
+                 f"{max(syncs)}) under the sync count" if count else "") + f" [{card}]",
+              flush=True)
+    print(f"ba: (c) the six runs' keyframe trajectories against phase main's: "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail("ba", "(c) repeat", "the inline BA through the graph or the eager early exit "
+             "changed the run")
+
+
+def phase_ba(dev, seq, main_slam, card: str) -> int:
+    """The windowed BA as one CUDA graph and the asynchronous BA: (a) on
+    phase main's final map, (b) inline_ba=False over phase main's frames,
+    (c) the inline BA's graph against the eager early exit."""
+    cfg = kitti_config(seq)
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        t_part.append(time.perf_counter())
+        print(f"ba: {name} took {t_part[-1] - t_part[-2]:.1f} s", flush=True)
+
+    check_ba_graph(dev, cfg, main_slam.map, main_slam.intr_left, card)
+    part("(a)")
+    staged = [torch.from_numpy(np.stack([seq.left[t], seq.right[t]]).astype(np.uint8)).to(dev)
+              for t in range(len(seq.left))]
+    launches = check_ba_async(dev, cfg, staged, seq, card)
+    part("(b)")
+    check_ba_inline(dev, cfg, staged, seq, main_slam, card)
+    part("(c)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1869,7 +2209,7 @@ def replay_equals_eager(graph) -> bool:
     from stereoslam_tpu_torch.core.graphs import _flat
 
     with KeepCounters():
-        eager = graph._frame(*graph._inputs)
+        eager = graph._fn(*graph._inputs)
         torch.cuda.synchronize()
     return all(torch.equal(a, b) for a, b in zip(_flat(eager), _flat(graph._outputs)))
 
@@ -2408,7 +2748,7 @@ def check_multiseq_steps(dev, seqs, cfg, card: str) -> None:
                     g.run(staged[t], vo._pyr_prev, vo.fs, vo.maps))
                 g.replays -= 1
                 lr, pyr_prev, fs, tmap = g._inputs
-                eager = g._frame(lr, pyr_prev, fs, tmap)
+                eager = g._fn(lr, pyr_prev, fs, tmap)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(_flat(eager), _flat(replayed))):
                     replay_differ.append(t)
@@ -2587,6 +2927,49 @@ def check_multiseq_world(dev, ms, card: str) -> None:
                  f"above loop OFF {r['ate_loop_off_m']} m")
 
 
+def check_multiseq_service(dev, seqs, cfg, card: str) -> None:
+    """(b) Phase M's keyframe service with its BA through the eager
+    early-exit BA and through the BA graph, one run each in one process:
+    aggregate FPS and the host's ms a step in the keyframe stage after the
+    warm-up, and the runs bit for bit."""
+    from stereoslam_tpu_torch.core import backend as B
+    from stereoslam_tpu_torch.parallel.multiseq import MultiSeqVO
+
+    stack = lambda t, f: np.stack([getattr(q, f)[t] for q in seqs])  # noqa: E731
+
+    def run(kind: str):
+        vo = MultiSeqVO(cfg, batch=MS_BATCH, device=dev)
+        if kind == "eager early exit":
+            vo._ba = functools.partial(B.optimize_active_map, intr=vo.intr, cfg=vo._run_cfg,
+                                       host_exit=True)
+        vo.initialize(stack(0, "left"), stack(0, "right"), np.zeros(MS_BATCH))
+        for t in range(1, MS_FRAMES):
+            if t == MS_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            vo.process_frames(stack(t, "left"), stack(t, "right"), np.full(MS_BATCH, t * 0.1))
+        vo.drain()
+        torch.cuda.synchronize()
+        fps = MS_BATCH * (MS_FRAMES - MS_WARMUP) / (time.perf_counter() - t0)
+        ms = np.asarray(vo.stage_s["keyframes"][MS_WARMUP - 1:]) * 1e3
+        return vo.maps, ms, vo.keyframes_serviced, fps
+
+    with KeepCounters():
+        runs = [(kind, run(kind)) for kind in ("eager early exit", "graph")]
+    ref = runs[0][1][0]
+    same = all(all(torch.equal(x, y) for x, y in zip(maps, ref)) for _, (maps, _, _, _) in runs)
+    for kind, (_, ms, n, fps) in runs:
+        print(f"multiseq: (b) keyframe service with the BA through the {kind}: {fps:.2f} "
+              f"aggregate FPS after the warm-up (host frames, process_frames); host ms a step "
+              f"in the keyframe stage after the warm-up: mean {ms.mean():.2f}, p50 "
+              f"{np.median(ms):.2f}, max {ms.max():.2f} over {len(ms)} steps; {n} keyframes "
+              f"serviced in the run [{card}]", flush=True)
+    print(f"multiseq: (b) the two runs' batched maps {'bit-identical' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        fail("multiseq", "(b) service", "the BA graph and the eager early exit give other maps")
+
+
 def phase_multiseq(dev, card: str):
     """The batched multi-sequence mode: (a) the batched LK launch, (b) bench.py
     Phase M's workload through MultiSeqVO fed by BatchFeed, with the checking
@@ -2660,6 +3043,8 @@ def phase_multiseq(dev, card: str):
         fail("multiseq", "repeat", f"(KFs, ATE) per sequence = {run}, expected "
              f"{EXPECTED_MULTISEQ_RUN}: the run repeats bit for bit, so the arithmetic changed")
     part("(b), Phase M")
+    check_multiseq_service(dev, seqs, cfg, card)
+    part("(b), the keyframe service's BA")
     check_multiseq_steps(dev, seqs, cfg, card)
     part("(b), the check run")
     check_multiseq_world(dev, ms, card)
@@ -2686,12 +3071,14 @@ DIST_RANKS = 2
 # JAX (tests/test_torch_parallel.py): scores 1e-5, poses 2e-3.
 DIST_SCORE_TOL, DIST_POSE_TOL, DIST_BA_GT_TOL = 1e-5, 2e-3, 5e-3
 DIST_RANK_TIMEOUT_S = 300
-# (c) StereoSlam(mesh=make_mesh()) over phase loop's circuit runs its BA at
-# retire (inline_ba=False), so it is another run than phase loop's (79, 2,
-# 0.129): (keyframes, loop edges, frame ATE in m), pinned from a run on an
-# NVIDIA H100 80GB HBM3; it repeats bit for bit, as phase loop's does.
+# (c) StereoSlam(mesh=make_mesh()) over phase loop's circuit runs the
+# asynchronous BA (inline_ba=False), so it is another run than phase loop's
+# (79, 2, 0.129): (keyframes, loop edges, frame ATE in m), pinned from a run
+# on an NVIDIA H100 80GB HBM3; it repeats bit for bit, as phase loop's does.
+# Its frames track the pre-BA map until the BA is swapped in, so it moved
+# from the synchronous BA at retire's (82, 2, 0.1703).
 DIST_MIN_EDGE_GAP = 20
-EXPECTED_DIST_LOOP_RUN = (82, 2, 0.1703)
+EXPECTED_DIST_LOOP_RUN = (83, 2, 0.2338)
 
 
 def dist_pose_graph(seed: int = 0) -> dict:
@@ -3209,6 +3596,7 @@ def main() -> None:
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     launches, main_slam = run_phase("main", phase_main, dev, seq, Path(work.name), card)
     phase("pipeline", phase_pipeline, dev, seq, main_slam, card)
+    ba_launches = phase("ba", phase_ba, dev, seq, main_slam, card)
     phase("cli", phase_cli, dev, seq, main_slam, Path(work.name), card)
     del main_slam
     work.cleanup()
@@ -3239,7 +3627,8 @@ def main() -> None:
                                ("lk_final_error", "stereoslam_tpu/ops/lk_batched.py:137"),
                                ("lk_pyramid_batched", "stereoslam_tpu/ops/lk_pallas.py:185"))
     ]
-    print(f"launches: lk_pyramid on phase main {launches['lk_pyramid']}, undistort "
+    print(f"launches: lk_pyramid on phase main {launches['lk_pyramid']}, ba (b) {ba_launches}, "
+          f"undistort "
           f"{undistort_launches}, endurance (a) {endurance_launches}, dist (c) "
           f"{dist_launches[0]}, lk_pyramid_batched on dist (d) {dist_launches[1]}", flush=True)
     print(f"card: {card}", flush=True)

@@ -1,6 +1,9 @@
 """One CUDA graph of the tracked frame per ``StereoSlam`` (and of the
-batched tracked step per ``MultiSeqVO``): the port's counterpart of the JAX
-package's jitted frame program.
+batched tracked step per ``MultiSeqVO``), and one of the windowed BA per
+facade: the port's counterparts of the JAX package's jitted frame and BA
+programs.  Both are a :class:`CapturedGraph`: a function that reads nothing
+back and takes its shapes from the config, captured once and replayed on
+static input buffers.
 
 :func:`~stereoslam_tpu_torch.core.frontend.track_frame` (the pyramid, LK
 with its gated rescue passes, the pose LM, the status and the branch flags)
@@ -14,8 +17,12 @@ several thousand kernel launches of the eager frame.
 PyTorch's, and creates the cuBLAS and cuSOLVER handles.  It is the eager
 frame on the same inputs and its results are discarded, so it does not
 advance the state.  The capture then runs in ``thread_local`` mode, so a
-feed thread that stages the next frames meanwhile does not break it.  A
-failed capture raises; a CUDA tensor never falls back to the eager frame.
+feed thread that stages the next frames meanwhile does not break it, on a
+capture stream of its own: cuBLAS keeps its workspace per stream, so two
+graphs captured on torch's shared capture stream would share one and race
+when they replay on two streams at once, as the asynchronous BA does (two
+such runs of phase main's frames differed).  A failed capture raises; a
+CUDA tensor never falls back to the eager frame.
 
 **Inputs: copied in before every replay.**  The graph owns a static buffer
 for every input: the stereo pair ``lr_u8``, the previous frame's pyramid,
@@ -62,6 +69,29 @@ multi-sequence mode passes its tracked step over B sequences
 (``parallel/multiseq.py``), whose inputs carry a leading B and whose
 copy-in is reckoned there.  Capture, copy-in and launch counts are the
 same.
+
+**The windowed BA** (:class:`BAGraph`): ``core/backend.py``
+``optimize_active_map`` (the window's gather and landmark compaction, the
+float64 Schur LM of ``ops/schur.py`` with every one of its ``rounds x
+iters`` steps run and its exit tests frozen on the device, the write-back)
+reads nothing back, and its shapes come from the config (W, N, C = W * N,
+the map's capacities), so it is captured at the facade's first BA, with the
+same warm-up, ``thread_local`` capture and launch counts.  Its inputs are
+the map fields the BA reads (``BAMap``), copied in before every replay: at
+KITTI geometry with the full-size state (1536 keyframe rows of 400
+features, 131,072 landmark rows, W = 7) 11.07 MB, of which the keyframe
+feature tables are 7.99 MB (1536 x 400 x (8 + 4 + 1) bytes) and the
+landmark fields 2.88 MB: about 6.6 us of the card's time at 3.35 TB/s.
+Its six outputs (``kf_T_cw``, ``kf_rel_prev``, ``lm_pos``, ``kf_feat_lm``,
+``lm_obs_count``, ``lm_outlier``; 4.88 MB, about 2.9 us) are copied out of
+the graph's memory before they become the map's fields, since the next
+replay overwrites them.  A replay computes all ``rounds x iters`` steps, the
+frozen ones too: on phase main's final map 88.0-88.8 ms of the card's time,
+where the host-read early exit stops after 2 steps and 3.9 ms (NVIDIA H100
+80GB HBM3, 700.00 W; ``chip_smoke.py`` phase ba).  A replay runs on the
+caller's current stream: the facade's own stream for the inline BA and the
+batched keyframe service, a side stream for the asynchronous BA
+(``core/system.py``).
 """
 
 from __future__ import annotations
@@ -72,6 +102,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from stereoslam_tpu_torch.config import SlamConfig
+from stereoslam_tpu_torch.core import backend as backend_mod
 from stereoslam_tpu_torch.core import frontend as frontend_mod
 from stereoslam_tpu_torch.core.state import FrontendState
 from stereoslam_tpu_torch.ops.camera import Intrinsics
@@ -118,33 +149,28 @@ def _single_frame(cfg: SlamConfig, intr: Intrinsics, pre_left: Callable, lr_u8, 
     return left, fs2, pyr, packed
 
 
-class TrackGraph:
-    """Runs ``track_frame`` (or ``frame_fn``) as one replayed CUDA graph (on
-    the CPU: on the same static buffers, without a graph)."""
+class CapturedGraph:
+    """``fn(*inputs)`` replayed as one CUDA graph on static input buffers (on
+    the CPU: called on the same buffers, without a graph)."""
 
-    def __init__(self, cfg: SlamConfig, intr_left: Intrinsics, device,
-                 frame_fn: Optional[Callable] = None, pre_left: Optional[Callable] = None):
+    def __init__(self, device, fn: Callable):
         self.device = torch.device(device)
-        pre_left = pre_left or (lambda u8: u8.to(torch.float32))
-        self._frame = frame_fn or partial(_single_frame, cfg, intr_left, pre_left)
+        self._fn = fn
         self.graph = None
         self._inputs = None
         self._outputs = None
         self._launch_deltas: Tuple[int, ...] = ()
         self.replays = 0
 
-    def run(self, lr_u8: torch.Tensor, pyr_prev, fs: FrontendState, map_state
-            ) -> Tuple[torch.Tensor, FrontendState, Tuple[torch.Tensor, ...], torch.Tensor]:
-        """One tracked frame: copy every input into its static buffer, replay
-        (or call, on the CPU), and return the static outputs (left_f32, fs,
-        pyr, packed outcome), valid until the next call."""
-        src = (lr_u8, tuple(pyr_prev), fs, frontend_mod.TrackMap.of(map_state))
+    def run(self, *src):
+        """Copy every input into its static buffer, replay (or call, on the
+        CPU), and return the static outputs, valid until the next call."""
         if self._inputs is None:
             self._inputs = _clone(src)
         else:
             _copy_into(self._inputs, src)
         if self.device.type == "cpu":
-            out = self._frame(*self._inputs)
+            out = self._fn(*self._inputs)
             if self._outputs is None:
                 self._outputs = _clone(out)
             else:
@@ -164,13 +190,50 @@ class TrackGraph:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            self._frame(*self._inputs)  # warm-up: the eager frame, results discarded
+            self._fn(*self._inputs)  # warm-up: the eager call, results discarded
         stream.wait_stream(side)
         warm = [getattr(fn, attr) for fn, attr in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._outputs = self._frame(*self._inputs)
+        # A capture stream of its own, so a cuBLAS workspace of its own.
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
+                              capture_error_mode="thread_local"):
+            self._outputs = self._fn(*self._inputs)
         self._launch_deltas = tuple(getattr(fn, attr) - w for (fn, attr), w in zip(counters, warm))
         for (fn, attr), w in zip(counters, warm):
             setattr(fn, attr, w)
         self.graph = graph
+
+
+class TrackGraph(CapturedGraph):
+    """Runs ``track_frame`` (or ``frame_fn``) as one replayed CUDA graph (on
+    the CPU: on the same static buffers, without a graph)."""
+
+    def __init__(self, cfg: SlamConfig, intr_left: Intrinsics, device,
+                 frame_fn: Optional[Callable] = None, pre_left: Optional[Callable] = None):
+        pre_left = pre_left or (lambda u8: u8.to(torch.float32))
+        super().__init__(device, frame_fn or partial(_single_frame, cfg, intr_left, pre_left))
+
+    def run(self, lr_u8: torch.Tensor, pyr_prev, fs: FrontendState, map_state
+            ) -> Tuple[torch.Tensor, FrontendState, Tuple[torch.Tensor, ...], torch.Tensor]:
+        """One tracked frame: the static outputs (left_f32, fs, pyr, packed
+        outcome), valid until the next call."""
+        return super().run(lr_u8, tuple(pyr_prev), fs, frontend_mod.TrackMap.of(map_state))
+
+
+def _window_ba(cfg: SlamConfig, intr: Intrinsics, ba_map: backend_mod.BAMap):
+    m = backend_mod.optimize_active_map(ba_map, intr, cfg)
+    return tuple(getattr(m, f) for f in backend_mod.BA_OUTPUTS)
+
+
+class BAGraph(CapturedGraph):
+    """Runs ``optimize_active_map`` as one replayed CUDA graph (on the CPU:
+    on the same static buffers, without a graph).  Calling it with a map
+    returns the map after the BA, its six BA fields copied out of the
+    graph's memory."""
+
+    def __init__(self, cfg: SlamConfig, intr: Intrinsics, device):
+        super().__init__(device, partial(_window_ba, cfg, intr))
+
+    def __call__(self, map_state):
+        out = self.run(backend_mod.BAMap.of(map_state))
+        return map_state._replace(**{f: t.clone() for f, t in zip(backend_mod.BA_OUTPUTS, out)})

@@ -170,10 +170,18 @@ def _with_dump_row(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, torch.zeros_like(x[:1])])
 
 
+def _as(val, x: torch.Tensor) -> torch.Tensor:
+    """``val`` in ``x``'s dtype on its device; a Python number is filled in
+    on the device, never copied from the host."""
+    if isinstance(val, torch.Tensor):
+        return val.to(dtype=x.dtype, device=x.device)
+    return torch.full((), val, dtype=x.dtype, device=x.device)
+
+
 def drop_set(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """``x.at[idx].set(val, mode="drop")`` for idx in [0, len(x)]."""
     out = _with_dump_row(x)
-    out[idx.long()] = torch.as_tensor(val, dtype=x.dtype, device=x.device)
+    out[idx.long()] = _as(val, x)
     return out[:-1]
 
 
@@ -181,5 +189,4 @@ def drop_add(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     """``x.at[idx].add(val, mode="drop")`` for idx in [0, len(x)]."""
     out = _with_dump_row(x)
     idx = idx.long()
-    val = torch.as_tensor(val, dtype=x.dtype, device=x.device).expand(idx.shape + x.shape[1:])
-    return out.index_add_(0, idx, val)[:-1]
+    return out.index_add_(0, idx, _as(val, x).expand(idx.shape + x.shape[1:]))[:-1]

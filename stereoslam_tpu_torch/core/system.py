@@ -29,11 +29,38 @@ package's CPU semantics) reports it on the frame that lost.
 Loop detection of a keyframe is enqueued when the keyframe retires and
 resolved (verified, corrected) at the next keyframe's retire, before its
 own detection starts, or when a public read drains the queue: the JAX
-package's order whenever a verdict has landed by the next keyframe.  With
-``inline_ba=False`` the BA runs synchronously when its keyframe retires:
-the JAX asynchronous BA's order whenever the BA lands before the next
-frame's poll (an asynchronous BA waits for a device-resident BA, since the
-port's reads the host once per iteration).
+package's order whenever a verdict has landed by the next keyframe.
+
+**The windowed BA** runs as one replayed CUDA graph (``core/graphs.py``
+``BAGraph``; every LM step runs, its exit tests frozen on the device, so it
+reads nothing back).  With ``inline_ba`` (the default without a mesh) it
+runs in the keyframe branch on the facade's stream.  With
+``inline_ba=False`` (the default with a mesh, as in JAX) it is
+*asynchronous*, JAX's ``_pending_ba``: when a keyframe retires (and at
+initialization) the BA graph is replayed on a side stream that first waits
+for the facade's stream, and the host goes on without waiting; the frames
+tracked meanwhile read the pre-BA map.  At most one BA is in flight.  Its
+result is swapped into the map by a device-side wait of the facade's
+stream on the BA's event, never by a host sync, at JAX's
+``_flush_pending_ba`` sites (before the next keyframe's retire work, before
+compaction, before each loop decision, at every public read through
+``_drain`` and so ``save_checkpoint``) and before any host-launched branch
+that writes the map (keyframe or replenishment).  The map tensors the side
+stream reads are marked for it (``record_stream``) and no map field is
+written before the swap; the BA's outputs are marked for the facade's
+stream at the swap.  On the CPU the same code runs the BA at its launch
+and swaps at the same points.  Two departures from JAX:
+
+- JAX swaps when ``_poll_async`` finds the result ready, so which frames
+  see the new map depends on timing.  The port adds no readiness poll: a
+  run stays a deterministic function of its frames and ``readback_lag``.
+- JAX's swap replaces the whole map by the BA's output, so a keyframe or
+  replenishment written by a frame enqueued while the BA was in flight is
+  lost at the swap.  The reference writes only the BA's poses and
+  landmarks under the map lock; the port swaps before every map write and
+  replaces only the BA's fields, so every write is kept.
+
+``load_checkpoint`` drops a BA in flight (JAX's keeps it).
 
 **Undistortion** (``camera.need_undistortion``, reference camera.cpp:36-48):
 the two (H, W, 2) source grids are built once at construction (in float32
@@ -57,10 +84,10 @@ import numpy as np
 import torch
 
 from stereoslam_tpu_torch.config import SlamConfig
-from stereoslam_tpu_torch.core import backend as backend_mod
 from stereoslam_tpu_torch.core import frontend as frontend_mod
 from stereoslam_tpu_torch.core import loopclosing as loop_mod
-from stereoslam_tpu_torch.core.graphs import TrackGraph
+from stereoslam_tpu_torch.core.backend import BA_OUTPUTS, BAMap
+from stereoslam_tpu_torch.core.graphs import BAGraph, TrackGraph
 from stereoslam_tpu_torch.core.maintenance import compact_landmarks
 from stereoslam_tpu_torch.core.state import INITING, LOST, TRACKING_GOOD, init_all
 from stereoslam_tpu_torch.ops.camera import Intrinsics, undistort_image, undistortion_map
@@ -119,8 +146,9 @@ class StereoSlam:
         ``readback_lag``: frames between a frame's tracking and its retire
         (default 0; see the module docstring).
         ``inline_ba``: run windowed BA inside the keyframe branch of the frame
-        step; False runs it when the keyframe frame retires (default: True
-        unless a mesh is given, as in JAX).
+        step; False runs it asynchronously from the keyframe frame's retire
+        (see the module docstring; default: True unless a mesh is given, as
+        in JAX).
         ``descriptor_model``: the loop closer's whole-image descriptor
         (default: the shipped trained CALC weights, else HOG).
         ``mesh``: a ``DeviceMesh`` (``parallel/mesh.py`` ``make_mesh``) over
@@ -160,7 +188,11 @@ class StereoSlam:
             self._pre_right = partial(_widen_remap, self.undistortion_maps[1])
         self.fs, self.map, self.loop = init_all(cfg, self.device)
         self.inline_ba = bool(inline_ba) if inline_ba is not None else mesh is None
-        self._ba = partial(backend_mod.optimize_active_map, intr=self.intr_left, cfg=cfg)
+        # The windowed BA (map -> map), its stream for the asynchronous BA,
+        # and the BA in flight: (its event on the card or None, its fields).
+        self._ba = BAGraph(cfg, self.intr_left, self.device)
+        self._ba_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._pending_ba = None
         self.track_graph = TrackGraph(cfg, self.intr_left, self.device, pre_left=self._pre_left)
         # The packed outcome's landing place on the host, and its event.
         if self.device.type == "cuda":
@@ -272,7 +304,8 @@ class StereoSlam:
                                                     device=self.device))
             self.map = m
             self._pose_log[frame_idx] = (np.eye(4, dtype=np.float32), kf_id)
-            # The init keyframe's BA runs here even in inline mode.
+            # The init keyframe's BA runs here even in inline mode (JAX:
+            # force_ba=self.inline_ba): synchronous inline, else launched.
             self._after_keyframe(left_f32, kf_id, run_ba=self.enable_backend)
             log.info("stereo init: %d landmarks, KF %d", n_lm, kf_id)
         else:
@@ -305,6 +338,7 @@ class StereoSlam:
             counts = (o.num_inliers, o.num_tracked, o.status, -1, o.ref_kf, o.n_lm)
             T_rk = o.T_rk
             if o.make_kf or o.replenish:
+                self._swap_ba()  # the branch writes the map
                 ts = torch.full((), float(timestamp), dtype=torch.float32, device=self.device)
                 ba_fn = self._ba if (self.enable_backend and self.inline_ba) else None
                 self.fs, self.map, kf_id = frontend_mod.run_branch(
@@ -360,6 +394,7 @@ class StereoSlam:
                       "raise map.max_keyframes for longer runs",
                       self.cfg.map.max_keyframes, frame_idx)
         if n_lm >= self._lm_compact_threshold and kf_id >= 0:
+            self._swap_ba()
             self.map, tracks, freed = compact_landmarks(self.map, self.fs.tracks)
             self.fs = self.fs._replace(tracks=tracks)
             self.compaction_count += 1
@@ -372,6 +407,7 @@ class StereoSlam:
         if kf_id >= 0:
             if self.profiler._current is not None:
                 self.profiler._current.keyframe_id = kf_id
+            self._swap_ba()
             self._after_keyframe(self._pre_left(entry.lr_u8[0]), kf_id,
                                  run_ba=self.enable_backend and not self.inline_ba)
 
@@ -379,11 +415,13 @@ class StereoSlam:
     def _after_keyframe(self, left_f32: torch.Tensor, kf_id: int, run_ba: bool) -> None:
         """The work of the reference's backend and loop threads for a new
         keyframe (backend.cpp:74-103, loopclosing.cpp:52-80): descriptors,
-        BA, then loop closing."""
+        BA (synchronous inline, else launched), then loop closing."""
         if self.enable_loop:
             self.loop = self._loop_closer.process_keyframe(self.map, self.loop, left_f32, kf_id)
-        if run_ba:
+        if run_ba and self.inline_ba:
             self.map = self._ba(self.map)
+        elif run_ba:
+            self._launch_ba()
         if self.enable_loop:
             # The previous keyframes' detections resolve before this one's starts.
             self._flush_loops()
@@ -391,13 +429,51 @@ class StereoSlam:
             if token is not None:
                 self._pending_loops.append(token)
 
+    def _launch_ba(self) -> None:
+        """Start the windowed BA of the current map and do not wait for it
+        (JAX ``self._pending_ba = self._jit_ba(self.map)``): on the card
+        its graph replays on the side stream after the work the facade's
+        stream has enqueued; on the CPU it runs here."""
+        self._swap_ba()  # at most one BA in flight
+        src = self.map
+        if self._ba_stream is None:
+            new, done = self._ba(src), None
+        else:
+            self._ba_stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._ba_stream):
+                new = self._ba(src)
+                done = torch.cuda.Event()
+                done.record()
+            # The side stream reads these map tensors, which the facade's
+            # stream allocated: none is reused before the BA has read it.
+            for t in BAMap.of(src):
+                t.record_stream(self._ba_stream)
+        self._pending_ba = (done, {f: getattr(new, f) for f in BA_OUTPUTS})
+
+    def _swap_ba(self) -> None:
+        """Swap the BA in flight into the map (JAX ``_flush_pending_ba``):
+        the facade's stream waits for its event on the device, the host does
+        not.  Only the BA's fields change; no map write happens while a BA is
+        in flight, so they are the BA of the map as it stands."""
+        if self._pending_ba is None:
+            return
+        done, fields = self._pending_ba
+        self._pending_ba = None
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in fields.values():  # made on the side stream
+                t.record_stream(stream)
+        self.map = self.map._replace(**fields)
+
     def _drain(self) -> None:
-        """Retire every in-flight frame, then resolve the pending loop
-        decisions (before public reads of the map)."""
+        """Retire every in-flight frame, resolve the pending loop decisions,
+        then swap in the BA in flight (before public reads of the map)."""
         while self._inflight and self._status != LOST:
             self._retire_entry(self._inflight.pop(0), record_latency=False)
         self._inflight.clear()
         self._flush_loops()
+        self._swap_ba()
 
     def _flush_loops(self) -> None:
         """Resolve the pending loop decisions, oldest first."""
@@ -406,6 +482,9 @@ class StereoSlam:
 
     def _flush_one_loop(self, token) -> None:
         kf_id = token[1]
+        # The correction rewrites the map: it sees the BA's result (the
+        # reference pauses the backend here, loopclosing.cpp:445-449).
+        self._swap_ba()
         self.map, self.loop, closed, loop_kf = self._loop_closer.finish_detect(
             self.map, self.loop, token)
         if not closed:
@@ -475,8 +554,9 @@ class StereoSlam:
     def save_checkpoint(self, path: str) -> str:
         """Snapshot the full SLAM state (map, tracks, loop database and the
         previous frame's pyramid) in the JAX package's layout, after
-        resolving pending loop decisions.  The keyframes' exact float64
-        timestamps ride along as ``facade.kf_timestamp``."""
+        resolving pending loop decisions and swapping in the BA in flight.
+        The keyframes' exact float64 timestamps ride along as
+        ``facade.kf_timestamp``."""
         self._drain()
         fs = self.fs._replace(status=torch.tensor(self._status, dtype=torch.int32,
                                                   device=self.device))
@@ -489,13 +569,15 @@ class StereoSlam:
         host-side counters are re-synced from the loaded state and the loop
         edges are read from its keyframe table; the PnP generator's state is
         not part of a checkpoint (nor is the JAX closer's PRNG key), so
-        verifications after a resume draw other minimal sets."""
+        verifications after a resume draw other minimal sets.  A BA in
+        flight is dropped."""
         self.fs, self.map, self.loop, self._pyr_prev, extra = ckpt.load_checkpoint(
             path, self.device)
         self._status = int(self.fs.status)
         self._frame_count = int(self.fs.frame_id) + 1
         self._inflight = []
         self._pending_loops = []
+        self._pending_ba = None
         n = int(self.map.n_kf)
         kf_loop = self.map.kf_loop[:n].cpu().numpy()
         self._loop_edges = [(int(k), int(lp)) for k, lp in enumerate(kf_loop) if lp >= 0]

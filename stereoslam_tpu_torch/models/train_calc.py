@@ -195,10 +195,11 @@ def pair_step(enc: nn.Module, dec: nn.Module, opt: torch.optim.Optimizer, a: tor
     return total.detach(), tuple(x.detach() for x in aux)
 
 
-def init_modules(seed: int = 0, device="cpu", init: Optional[Dict] = None):
-    """The encoder and decoder to train, on ``device``: Flax's init drawn on
-    the CPU from ``seed``, or ``init`` (``{"enc": ..., "dec": ...}`` Flax
-    variables, e.g. the JAX package's own init carried across)."""
+def init_modules(seed: int = 0, device="cuda", init: Optional[Dict] = None):
+    """The encoder and decoder to train, on ``device`` (the card unless the
+    caller asks for ``"cpu"``): Flax's init drawn on the CPU from ``seed``,
+    or ``init`` (``{"enc": ..., "dec": ...}`` Flax variables, e.g. the JAX
+    package's own init carried across)."""
     enc, dec = calc.CalcEncoder(), _Decoder()
     if init is None:
         g = torch.Generator().manual_seed(seed)

@@ -12,6 +12,22 @@ bit for bit; the JAX package builds one-hot (C, W*N) selection matrices for
 the MXU instead.  Same damping schedule (/3 on accept, x10 on reject) but for
 its floor (below), exit rules and masks.
 
+**Exit tests on the device.**  The JAX package's two ``while_loop``s (a
+round's LM iterations until a converged step, the rounds until the inlier
+ratio passes) become one step function, ``_lm_step``, and two drivers.  On
+CUDA tensors every ``rounds x iters`` step runs and the carry (poses,
+landmarks, damping, inliers) is frozen by ``torch.where`` on two device
+flags, the round's ``done`` and the solve's ``stop``: the loops' result with
+no host read, so :func:`solve_window_ba` and the backend's BA around it can
+be captured in a CUDA graph (``core/graphs.py`` ``BAGraph``).  A replay
+computes every step, the frozen ones too: PyTorch 2.11, the card's, cannot
+capture a step into a conditional graph node (no
+``CUDAGraph.begin_capture_to_if_node``), so the device cannot skip them as
+the ``while_loop`` exits do.  On CPU
+tensors, where a read is free, the host reads each exit test and stops
+early.  The two give the same result bit for bit; a CUDA tensor never takes
+the host-read driver unless the caller asks (``host_exit=True``).
+
 The solve runs in float64 and returns the caller's dtype.  Where a landmark
 is seen from nearly one viewpoint its block of C is singular up to the
 damping, and S = B - E C^-1 E^T cancels down to the damping along the map's
@@ -40,7 +56,7 @@ to the JAX package's 1e-8 to compare the two floors over seeds.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -142,6 +158,150 @@ def _robust_cost(chi2: torch.Tensor, delta: float) -> torch.Tensor:
     return torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(d2 * chi2) - d2)
 
 
+class _Window(NamedTuple):
+    """What every LM step of one solve shares: the float64 problem, its
+    masks, its index maps and its constants."""
+
+    prob: BAProblem          # float64 poses, landmarks and measurements
+    intr: Intrinsics
+    obs_lm: torch.Tensor     # (W, N) long
+    base_valid: torch.Tensor  # (W, N) observations that take part at all
+    lm_free: torch.Tensor    # (C,) landmarks the solve moves
+    moved: torch.Tensor      # (W,) cameras the solve moves
+    slot_mask: torch.Tensor  # (6W,) rows of the reduced system that move
+    strip_idx: torch.Tensor  # (W*N,) row w * C + slot of the strip E
+    flat_lm: torch.Tensor    # (W*N,) landmark slot of each observation
+    eye3: torch.Tensor
+    eye6: torch.Tensor
+    eyeS: torch.Tensor
+    huber_delta: float
+    lam_min: float
+
+
+def _window(prob: BAProblem, intr: Intrinsics, huber_delta: float, lam_min: float) -> _Window:
+    W, N = prob.obs_valid.shape
+    C = prob.lm_pos.shape[0]
+    dev, dt = prob.lm_pos.device, prob.lm_pos.dtype
+    obs_lm = prob.obs_lm.long()
+    moved = prob.cam_valid & ~prob.cam_fixed
+    return _Window(
+        prob=prob, intr=intr, obs_lm=obs_lm,
+        base_valid=prob.obs_valid & prob.cam_valid[:, None] & prob.lm_valid[obs_lm],
+        lm_free=prob.lm_valid & ~prob.lm_fixed,
+        moved=moved,
+        slot_mask=moved.repeat_interleave(6),
+        strip_idx=(torch.arange(W, device=dev)[:, None] * C + obs_lm).reshape(-1),
+        flat_lm=obs_lm.reshape(-1),
+        eye3=torch.eye(3, dtype=dt, device=dev),
+        eye6=torch.eye(6, dtype=dt, device=dev),
+        eyeS=torch.eye(W * 6, dtype=dt, device=dev),
+        huber_delta=huber_delta, lam_min=lam_min)
+
+
+def _chi2(win: _Window, cam_T: torch.Tensor, lm_pos: torch.Tensor) -> torch.Tensor:
+    r = win.prob.obs_px - _project_px(cam_T, lm_pos, win.obs_lm, win.intr)
+    return (r * r).sum(-1)
+
+
+def _lm_step(win: _Window, cam_T, lm_pos, inlier, lam):
+    """One damped Gauss-Newton step of the window (the body of the JAX
+    package's inner ``while_loop``): the step taken if it lowers the robust
+    cost, the damping moved, and whether the step converged.  Returns
+    (cam_T, lm_pos, lam, done); reads nothing back."""
+    prob, dt = win.prob, lm_pos.dtype
+    W, C = cam_T.shape[0], lm_pos.shape[0]
+    px_hat, J_c, J_p = _project_all(cam_T, lm_pos, win.obs_lm, win.intr)
+    r = prob.obs_px - px_hat
+    chi2 = (r * r).sum(-1)
+    wgt = torch.where(win.base_valid & inlier, _huber_w(chi2, win.huber_delta),
+                      torch.zeros_like(chi2))
+    J_c = torch.where(prob.cam_fixed[:, None, None, None], torch.zeros_like(J_c), J_c)
+
+    B = torch.einsum("wnki,wn,wnkj->wij", J_c, wgt, J_c)
+    b_c = torch.einsum("wnki,wn,wnk->wi", J_c, wgt, r)
+    JtJ_p = torch.einsum("wnki,wn,wnkj->wnij", J_p, wgt, J_p).reshape(-1, 9)
+    Jtr_p = torch.einsum("wnki,wn,wnk->wni", J_p, wgt, r).reshape(-1, 3)
+    C_blk = _sum_by_slot(JtJ_p, win.flat_lm, C).reshape(C, 3, 3)
+    b_p = _sum_by_slot(Jtr_p, win.flat_lm, C)
+    JcJp = torch.einsum("wnki,wn,wnkj->wnij", J_c, wgt, J_p).reshape(-1, 18)
+    E = _sum_by_slot(JcJp, win.strip_idx, W * C).reshape(W, C, 6, 3)
+
+    C_inv = _inv3x3(C_blk + lam * win.eye3)
+    C_inv = torch.where(win.lm_free[:, None, None], C_inv, torch.zeros_like(C_inv))
+
+    ECi = torch.einsum("wcij,cjk->wcik", E, C_inv)
+    S = -torch.einsum("wcik,vclk->wivl", ECi, E).reshape(W * 6, W * 6)
+    S = S + torch.block_diag(*(B + lam * win.eye6))
+    rhs = (b_c - torch.einsum("wcik,ck->wi", ECi, b_p)).reshape(-1)
+
+    slot_mask = win.slot_mask
+    Sm = torch.where(slot_mask[:, None] & slot_mask[None, :], S, torch.zeros_like(S))
+    Sm = Sm + torch.diag((~slot_mask).to(dt))
+    rhs_m = torch.where(slot_mask, rhs, torch.zeros_like(rhs))
+    dx_cam = torch.linalg.solve_ex(Sm + 1e-8 * win.eyeS, rhs_m)[0].reshape(W, 6)
+
+    Et_dx = torch.einsum("wcij,wi->cj", E, dx_cam)
+    dx_p = torch.einsum("cij,cj->ci", C_inv, b_p - Et_dx)
+
+    cam_T_new = torch.where(win.moved[:, None, None], se3.exp(dx_cam) @ cam_T, cam_T)
+    lm_new = torch.where(win.lm_free[:, None], lm_pos + dx_p, lm_pos)
+
+    mask = (win.base_valid & inlier).to(dt)
+    cost_old = (_robust_cost(chi2, win.huber_delta) * mask).sum()
+    cost_new = (_robust_cost(_chi2(win, cam_T_new, lm_new), win.huber_delta) * mask).sum()
+    ok = cost_new < cost_old
+    cam_T = torch.where(ok, cam_T_new, cam_T)
+    lm_pos = torch.where(ok, lm_new, lm_pos)
+    lam = torch.where(ok, torch.clamp(lam / 3.0, min=win.lam_min),
+                      torch.clamp(lam * 10.0, max=1e3))
+    # Exit only on an accepted step with BOTH camera and landmark steps
+    # converged (schur.py:244-255).
+    dxp = torch.where(win.lm_free[:, None], dx_p, torch.zeros_like(dx_p))
+    done = ok & ((dx_cam * dx_cam).sum() < 1e-10) & ((dxp * dxp).sum() < 1e-8)
+    return cam_T, lm_pos, lam, done
+
+
+def _classify(win: _Window, cam_T, lm_pos, n_base, chi2_threshold: float):
+    """A round's end: the chi2 inliers, and whether their share of the
+    base observations ends the solve (> 0.5, backend.cpp:212-232)."""
+    inlier = win.base_valid & (_chi2(win, cam_T, lm_pos) <= chi2_threshold)
+    return inlier, inlier.sum().to(torch.float32) / n_base > 0.5
+
+
+def _early_exit(win, cam_T, lm_pos, inlier, lam, n_base, rounds, iters, chi2_threshold):
+    """The rounds with the host reading each exit test: a round ends at the
+    first converged step, the solve at the first round whose ratio test
+    passes."""
+    for _ in range(rounds):
+        for _ in range(iters):
+            cam_T, lm_pos, lam, done = _lm_step(win, cam_T, lm_pos, inlier, lam)
+            if bool(done):
+                break
+        inlier, stop = _classify(win, cam_T, lm_pos, n_base, chi2_threshold)
+        if bool(stop):
+            break
+    return cam_T, lm_pos, inlier
+
+
+def _fixed_steps(win, cam_T, lm_pos, inlier, lam, n_base, rounds, iters, chi2_threshold):
+    """All ``rounds x iters`` steps, the carry frozen by two device flags:
+    ``done`` (the round's converged step) and ``stop`` (a passed ratio
+    test).  The two ``while_loop``s' result with no host read."""
+    stop = torch.zeros((), dtype=torch.bool, device=cam_T.device)
+    for _ in range(rounds):
+        done = stop
+        for _ in range(iters):
+            cam_T2, lm_pos2, lam2, converged = _lm_step(win, cam_T, lm_pos, inlier, lam)
+            cam_T = torch.where(done, cam_T, cam_T2)
+            lm_pos = torch.where(done, lm_pos, lm_pos2)
+            lam = torch.where(done, lam, lam2)
+            done = done | converged
+        inlier2, passed = _classify(win, cam_T, lm_pos, n_base, chi2_threshold)
+        inlier = torch.where(stop, inlier, inlier2)
+        stop = stop | passed
+    return cam_T, lm_pos, inlier
+
+
 def solve_window_ba(
     prob: BAProblem,
     intr: Intrinsics,
@@ -150,95 +310,31 @@ def solve_window_ba(
     chi2_threshold: float = 5.991,
     huber_delta: float = 5.991,
     damping0: float = 1e-3,
+    host_exit: Optional[bool] = None,
 ) -> BAResult:
     """Windowed BA with the reference's outlier schedule: rounds of LM
     iterations, each round ending with chi2 re-classification, stopping
     once the inlier ratio exceeds 0.5 (backend.cpp:212-232).  Computed in
     float64 (see the module docstring); results come back in the dtype of
-    ``prob.cam_T``."""
+    ``prob.cam_T``.
+
+    ``host_exit``: end a round at its converged step and the solve at its
+    passed ratio test by reading them on the host (default: on CPU tensors
+    only).  Otherwise every ``rounds x iters`` step runs with the carry
+    frozen on the device, which reads nothing back, so the solve can be
+    captured in a CUDA graph; the result is the same bit for bit."""
     out_dt = prob.cam_T.dtype
     prob = prob._replace(cam_T=prob.cam_T.double(), lm_pos=prob.lm_pos.double(),
                          obs_px=prob.obs_px.double())
-    W, N = prob.obs_valid.shape
-    C = prob.lm_pos.shape[0]
-    dev, dt = prob.lm_pos.device, prob.lm_pos.dtype
-    obs_lm = prob.obs_lm.long()
-    lm_free = prob.lm_valid & ~prob.lm_fixed
-    base_valid = prob.obs_valid & prob.cam_valid[:, None] & prob.lm_valid[obs_lm]
-    moved = prob.cam_valid & ~prob.cam_fixed
-    slot_mask = moved.repeat_interleave(6)
-    # Strip E (W, C, 6, 3) is reduced through flat row w * C + slot.
-    strip_idx = (torch.arange(W, device=dev)[:, None] * C + obs_lm).reshape(-1)
-    flat_lm = obs_lm.reshape(-1)
-    eye3 = torch.eye(3, dtype=dt, device=dev)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    eyeS = torch.eye(W * 6, dtype=dt, device=dev)
-
-    def chi2_of(cam_T, lm_pos):
-        r = prob.obs_px - _project_px(cam_T, lm_pos, obs_lm, intr)
-        return (r * r).sum(-1)
-
-    def lm_iter(cam_T, lm_pos, inlier, lam):
-        px_hat, J_c, J_p = _project_all(cam_T, lm_pos, obs_lm, intr)
-        r = prob.obs_px - px_hat
-        chi2 = (r * r).sum(-1)
-        wgt = torch.where(base_valid & inlier, _huber_w(chi2, huber_delta), torch.zeros_like(chi2))
-        J_c = torch.where(prob.cam_fixed[:, None, None, None], torch.zeros_like(J_c), J_c)
-
-        B = torch.einsum("wnki,wn,wnkj->wij", J_c, wgt, J_c)
-        b_c = torch.einsum("wnki,wn,wnk->wi", J_c, wgt, r)
-        JtJ_p = torch.einsum("wnki,wn,wnkj->wnij", J_p, wgt, J_p).reshape(-1, 9)
-        Jtr_p = torch.einsum("wnki,wn,wnk->wni", J_p, wgt, r).reshape(-1, 3)
-        C_blk = _sum_by_slot(JtJ_p, flat_lm, C).reshape(C, 3, 3)
-        b_p = _sum_by_slot(Jtr_p, flat_lm, C)
-        JcJp = torch.einsum("wnki,wn,wnkj->wnij", J_c, wgt, J_p).reshape(-1, 18)
-        E = _sum_by_slot(JcJp, strip_idx, W * C).reshape(W, C, 6, 3)
-
-        C_inv = _inv3x3(C_blk + lam * eye3)
-        C_inv = torch.where(lm_free[:, None, None], C_inv, torch.zeros_like(C_inv))
-
-        ECi = torch.einsum("wcij,cjk->wcik", E, C_inv)
-        S = -torch.einsum("wcik,vclk->wivl", ECi, E).reshape(W * 6, W * 6)
-        S = S + torch.block_diag(*(B + lam * eye6))
-        rhs = (b_c - torch.einsum("wcik,ck->wi", ECi, b_p)).reshape(-1)
-
-        Sm = torch.where(slot_mask[:, None] & slot_mask[None, :], S, torch.zeros_like(S))
-        Sm = Sm + torch.diag((~slot_mask).to(dt))
-        rhs_m = torch.where(slot_mask, rhs, torch.zeros_like(rhs))
-        dx_cam = torch.linalg.solve_ex(Sm + 1e-8 * eyeS, rhs_m)[0].reshape(W, 6)
-
-        Et_dx = torch.einsum("wcij,wi->cj", E, dx_cam)
-        dx_p = torch.einsum("cij,cj->ci", C_inv, b_p - Et_dx)
-
-        cam_T_new = torch.where(moved[:, None, None], se3.exp(dx_cam) @ cam_T, cam_T)
-        lm_new = torch.where(lm_free[:, None], lm_pos + dx_p, lm_pos)
-
-        mask = (base_valid & inlier).to(dt)
-        cost_old = (_robust_cost(chi2, huber_delta) * mask).sum()
-        cost_new = (_robust_cost(chi2_of(cam_T_new, lm_new), huber_delta) * mask).sum()
-        ok = cost_new < cost_old
-        cam_T = torch.where(ok, cam_T_new, cam_T)
-        lm_pos = torch.where(ok, lm_new, lm_pos)
-        lam = torch.where(ok, torch.clamp(lam / 3.0, min=lam_min),
-                          torch.clamp(lam * 10.0, max=1e3))
-        # Exit only on an accepted step with BOTH camera and landmark steps
-        # converged (schur.py:244-255).
-        dxp = torch.where(lm_free[:, None], dx_p, torch.zeros_like(dx_p))
-        done = ok & ((dx_cam * dx_cam).sum() < 1e-10) & ((dxp * dxp).sum() < 1e-8)
-        return cam_T, lm_pos, lam, done
-
-    n_base = torch.clamp(base_valid.sum(), min=1).to(torch.float32)
-    cam_T, lm_pos, inlier = prob.cam_T, prob.lm_pos, base_valid
-    lam = torch.tensor(damping0, dtype=prob.cam_T.dtype, device=dev)
     lam_min = damping0 if DAMPING_FLOOR is None else DAMPING_FLOOR
-    for _ in range(rounds):
-        for _ in range(iters):
-            cam_T, lm_pos, lam, done = lm_iter(cam_T, lm_pos, inlier, lam)
-            if bool(done):
-                break
-        inlier = base_valid & (chi2_of(cam_T, lm_pos) <= chi2_threshold)
-        if bool(inlier.sum().to(torch.float32) / n_base > 0.5):
-            break
-    cam_T = torch.where(moved[:, None, None], se3.orthonormalize(cam_T), cam_T)
+    win = _window(prob, intr, huber_delta, lam_min)
+    if host_exit is None:
+        host_exit = prob.cam_T.device.type == "cpu"
+    n_base = torch.clamp(win.base_valid.sum(), min=1).to(torch.float32)
+    lam = torch.full((), damping0, dtype=prob.cam_T.dtype, device=prob.cam_T.device)
+    drive = _early_exit if host_exit else _fixed_steps
+    cam_T, lm_pos, inlier = drive(win, prob.cam_T, prob.lm_pos, win.base_valid, lam, n_base,
+                                  rounds, iters, chi2_threshold)
+    cam_T = torch.where(win.moved[:, None, None], se3.orthonormalize(cam_T), cam_T)
     return BAResult(cam_T=cam_T.to(out_dt), lm_pos=lm_pos.to(out_dt), obs_inlier=inlier,
-                    chi2=chi2_of(cam_T, lm_pos).to(out_dt))
+                    chi2=_chi2(win, cam_T, lm_pos).to(out_dt))

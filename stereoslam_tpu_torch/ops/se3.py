@@ -150,8 +150,9 @@ def left_update(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 
 def orthonormalize(T: torch.Tensor) -> torch.Tensor:
     """Project the rotation block back onto SO(3) via SVD (``ops/svd.py``:
-    ``torch.linalg.svd``'s arithmetic, and on float32 CUDA tensors no host
-    read, so the tracked frame's CUDA graph can hold it)."""
+    ``torch.linalg.svd``'s arithmetic, and on float32 and float64 CUDA
+    tensors no host read, so the tracked frame's and the windowed BA's CUDA
+    graphs can hold it)."""
     from stereoslam_tpu_torch.ops.svd import svd
 
     u, _, vt = svd(T[..., :3, :3])

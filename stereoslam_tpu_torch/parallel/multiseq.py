@@ -20,7 +20,8 @@ applied loop closing.  A step is
 3. **keyframe service** for the selected sequences (at most ``kf_sub``,
    most overdue first, BAD status outranking the motion clock; the rest
    stay eligible and win a later step): ``make_keyframe_step``, the
-   windowed BA, the descriptor of the left image and the reduced-pyramid
+   windowed BA (one replayed CUDA graph, ``core/graphs.py`` ``BAGraph``),
+   the descriptor of the left image and the reduced-pyramid
    ORB rows, each written into the batched state in place, then
    :func:`batched_loop_detect` over the whole batch.  The serviced
    sequences are looped over from the host, as the keyframe branch of
@@ -82,8 +83,7 @@ import torch
 
 from stereoslam_tpu_torch.config import SlamConfig
 from stereoslam_tpu_torch.core import frontend as frontend_mod
-from stereoslam_tpu_torch.core.backend import optimize_active_map
-from stereoslam_tpu_torch.core.graphs import TrackGraph
+from stereoslam_tpu_torch.core.graphs import BAGraph, TrackGraph
 from stereoslam_tpu_torch.core.loopclosing import LoopCloser, post_correction_unlink
 from stereoslam_tpu_torch.core.state import (LOST, TRACKING_BAD, TRACKING_GOOD, LoopState,
                                              TrackState, init_frontend_state, init_map_state)
@@ -410,6 +410,9 @@ class MultiSeqVO:
         self._last_counts: Optional[np.ndarray] = None
         self._bad = cfg.features.num_features_tracking_bad
         self.graph = TrackGraph(cfg, self.intr, dev, frame_fn=self._frame)
+        # The windowed BA of a serviced keyframe, one sequence's map at a
+        # time: one replayed CUDA graph (core/graphs.py).
+        self._ba = BAGraph(self._run_cfg, self.intr, dev)
         if dev.type == "cuda":
             self._host_outcome = torch.empty((self.batch, len(OUTCOME_COLUMNS)),
                                              dtype=torch.float32, pin_memory=True)
@@ -561,7 +564,7 @@ class MultiSeqVO:
                 cfg.camera.baseline, t, cfg)
             if self.enable_backend:
                 # The batched mode runs a BA on every serviced keyframe.
-                m_b = optimize_active_map(m_b, intr=self.intr, cfg=cfg)
+                m_b = self._ba(m_b)
             kf = int(kf)
             kf_ids[b] = kf
             if self.enable_loop:

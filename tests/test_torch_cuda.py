@@ -26,7 +26,9 @@ it bit for bit; the eager frame makes no host sync; ``lk_pyramid`` gated on
 equals the ungated call bit for bit.  A batched ``lk_pyramid`` launch gives
 each sequence the bits of its own single launch, gated or not, and a replay
 of the batched multi-sequence step's graph equals the eager batched step
-bit for bit.
+bit for bit.  The float64 SVD equals ``torch.linalg.svd`` bit for bit; a
+replay of the windowed BA's graph equals the eager BA bit for bit and reads
+nothing back; the asynchronous BA replays on a side stream.
 """
 
 import numpy as np
@@ -216,6 +218,73 @@ def test_svd_on_the_card_equals_torch_linalg_svd(dev):
             assert torch.equal(x, y) and x.stride() == y.stride()
 
 
+def test_float64_svd_on_the_card_equals_torch_linalg_svd(dev):
+    """The windowed BA's float64 rotation blocks: cuSOLVER's Dgesvdj with
+    float64's epsilon gives torch.linalg.svd's bits, one at a time and in
+    the window's batch of 7."""
+    from stereoslam_tpu_torch.ops.svd import svd
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, _ = torch.linalg.qr(torch.randn(21, 3, 3, device=dev, dtype=torch.float64, generator=gen))
+    mats = q + 1e-9 * torch.randn(21, 3, 3, device=dev, dtype=torch.float64, generator=gen)
+    for batch in (mats[0], mats[:7], mats):
+        got, want = svd(batch), torch.linalg.svd(batch)
+        for x, y in zip(got, want):
+            assert x.dtype == torch.float64 and torch.equal(x, y) and x.stride() == y.stride()
+
+
+def test_ba_replay_equals_eager_without_a_host_read(dev):
+    """The BA graph's replay against the eager optimize_active_map (every
+    output field, bit for bit), the eager fixed steps against the early
+    exit, and no host read in a replay nor in the eager fixed-step BA."""
+    from stereoslam_tpu_torch.core import backend as pbackend
+    from stereoslam_tpu_torch.core.graphs import BAGraph
+
+    seq, slam = _vo_slam(dev)
+    for t in range(len(seq.left)):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+    m, intr, cfg = slam.map, slam.intr_left, slam.cfg
+    early = pbackend.optimize_active_map(m, intr, cfg, host_exit=True)
+    g = BAGraph(cfg, intr, dev)
+    g(m)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fixed = pbackend.optimize_active_map(m, intr, cfg)
+        replay = g(m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for f in pbackend.BA_OUTPUTS:
+        assert torch.equal(getattr(fixed, f), getattr(early, f)), f
+        assert torch.equal(getattr(replay, f), getattr(fixed, f)), f
+
+
+def test_async_ba_replays_on_a_side_stream(dev):
+    """StereoSlam(inline_ba=False) replays its BA graph on a stream other
+    than the current one, and the run repeats bit for bit."""
+    runs = []
+    for _ in range(2):
+        seq, slam = _vo_slam(dev)
+        slam = StereoSlam(slam.cfg, device=dev, enable_loop=False, inline_ba=False)
+        streams = []
+        run = slam._ba.run
+
+        def traced(*a, _run=run, _streams=streams):
+            _streams.append(torch.cuda.current_stream(dev))
+            return _run(*a)
+
+        slam._ba.run = traced
+        for t in range(len(seq.left)):
+            assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+        main = torch.cuda.current_stream(dev)
+        assert streams and all(s != main for s in streams)
+        assert slam._ba.replays == len(streams) >= 2
+        runs.append(slam.keyframe_trajectory())
+    for x, y in zip(*runs):
+        assert np.array_equal(x, y)
+
+
 def _vo_slam(dev, n_frames=12):
     seq = generate_sequence(n_frames=n_frames, trajectory="forward", seed=3)
     cfg = pconfig.SlamConfig(
@@ -243,7 +312,7 @@ def test_graph_replay_equals_eager_track_frame(dev):
         assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
         if t < 2:
             continue
-        eager = g._frame(*g._inputs)
+        eager = g._fn(*g._inputs)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(_flat(eager), _flat(g._outputs))), t
     assert g.replays == len(seq.left) - 1 and int(slam.map.n_kf) >= 2
@@ -330,7 +399,7 @@ def test_multiseq_graph_replay_equals_eager_step(dev):
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                eager = g._frame(*g._inputs)
+                eager = g._fn(*g._inputs)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()

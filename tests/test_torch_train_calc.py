@@ -214,13 +214,13 @@ def test_losses_and_gradients_match_jax_at_jax_init(corpus, init):
         jax.tree.map(jnp.asarray, init), jnp.asarray(a), jnp.asarray(b), keys)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
 
-    enc, dec = ptc.init_modules(init=init)
+    enc, dec = ptc.init_modules(init=init, device="cpu")
     recon = ptc.recon_loss(enc, dec, ta, jax_augment(keys[:, 0], pairs=False))
     recon.backward()
     assert _rel(recon, recon_j) <= 1e-2
     assert_grads_close(port_grads(enc, dec), g_recon_j)
 
-    enc, dec = ptc.init_modules(init=init)
+    enc, dec = ptc.init_modules(init=init, device="cpu")
     total, aux = ptc.pair_loss(enc, dec, ta, tb, jax_augment(keys, pairs=True), **LOSS_KW)
     total.backward()
     recon, contrast, hinge = (float(x) for x in aux)
@@ -284,7 +284,7 @@ def test_render_corpus_pairs_matches_jax(corpus, monkeypatch):
 
 
 def test_init_is_flax_lecun_normal():
-    enc, dec = ptc.init_modules(seed=0)
+    enc, dec = ptc.init_modules(seed=0, device="cpu")
     layers = [enc.conv1, enc.conv2, enc.conv3, enc.proj, dec.dense0, dec.dense1]
     for layer in layers:
         wgt = layer.weight.detach().numpy()
@@ -294,7 +294,7 @@ def test_init_is_flax_lecun_normal():
         assert np.abs(wgt).max() <= 2.0 * std / 0.87962566103423978 + 1e-7
         if layer.bias is not None:
             assert not layer.bias.detach().any()
-    again, _ = ptc.init_modules(seed=0)
+    again, _ = ptc.init_modules(seed=0, device="cpu")
     assert torch.equal(again.proj.weight, enc.proj.weight)
 
 
@@ -316,11 +316,11 @@ def test_weight_files_round_trip_across_packages(tmp_path, init):
             np.testing.assert_array_equal(from_jax[k], v)
             np.testing.assert_array_equal(from_port[k], v)
     # Flax layout both ways through the bridge.
-    enc, _ = ptc.init_modules(init=init)
+    enc, _ = ptc.init_modules(init=init, device="cpu")
     back = dict(_leaves(bridge.calc_params_to_flax(enc.state_dict())))
     for k, v in _leaves(init["enc"]):
         np.testing.assert_array_equal(back[k], v)
-    _, dec = ptc.init_modules(init=init)
+    _, dec = ptc.init_modules(init=init, device="cpu")
     back = dict(_leaves(bridge.decoder_params_to_flax(dec.state_dict())))
     for k, v in _leaves(init["dec"]):
         np.testing.assert_array_equal(back[k], v)
@@ -355,7 +355,7 @@ def test_pairs_training_separates_places(corpus):
         S = za @ zb.T
         return np.diag(S).mean(), S[~np.eye(len(S), dtype=bool)].mean()
 
-    enc, _ = ptc.init_modules(seed=0)
+    enc, _ = ptc.init_modules(seed=0, device="cpu")
     pos0, neg0 = gap(bridge.calc_params_to_flax(enc.state_dict()))
     params, hist = ptc.train_encoder_pairs(A, B, steps=60, batch=4, seed=0, log_every=20,
                                            device="cpu")
