@@ -2766,11 +2766,11 @@ def check_multiseq_steps(dev, seqs, cfg, card: str) -> None:
                     seq_report.append((t, b, flags, lk_same, d_trk))
         if t == MS_WARMUP:
             break
-        before = (vo.outcome_reads, vo.detect_reads, vo.keyframes_serviced)
+        before = (vo.outcome_reads, vo.reads.counts["detect"], vo.keyframes_serviced)
         torch.cuda.synchronize()
         with SyncCount() as sc:
             vo.process_staged(staged[t], np.full(B, t * 0.1, np.float32))
-        outcome, detect = vo.outcome_reads - before[0], vo.detect_reads - before[1]
+        outcome, detect = vo.outcome_reads - before[0], vo.reads.counts["detect"] - before[1]
         kind = "keyframe" if (vo.keyframes_serviced > before[2] or detect) else "plain"
         if t >= 2:
             reads[kind].append((sc.n, outcome, detect))

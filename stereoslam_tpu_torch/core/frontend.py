@@ -15,6 +15,11 @@ rescue launches of the LK kernel, and its shapes come from the config, so
 branch is launched from the host after one read of the packed flags
 (:func:`run_branch`); the branches compute exactly what the JAX branches
 compute.  :func:`frame_step` is the two in a row.
+
+The keyframe branch (:func:`make_keyframe_step`) syncs with the device at
+a few sites; given a ``utils/prof.py`` ``HostReads`` it counts each there,
+and its stages (``kf.detect``, ``kf.stereo``, ``kf.insert``) are spans on
+the profiler's timeline.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from stereoslam_tpu_torch.ops.image import build_lk_pyramid, halve
 from stereoslam_tpu_torch.ops.lk import FlowResult, pyramidal_lk
 from stereoslam_tpu_torch.ops.lm import optimize_pose
 from stereoslam_tpu_torch.ops.triangulate import triangulate_stereo
+from stereoslam_tpu_torch.utils.prof import HostReads, host_read, span
 
 
 class TrackOutput(NamedTuple):
@@ -239,18 +245,23 @@ def _stereo_and_triangulate(
     baseline: float,
     cfg: SlamConfig,
     kf_id: torch.Tensor,
+    reads: Optional[HostReads] = None,
 ) -> Tuple[TrackState, MapState, torch.Tensor]:
     """LK stereo matching + triangulation of landmark-less tracks
     (FindFeaturesInRight, frontend.cpp:335-379; TriangulateNewPoints,
     451-488), at ``lk_stereo_levels`` pyramid depth.  Returns (tracks, map,
-    number of new landmarks)."""
+    number of new landmarks).  ``reads`` counts its host syncs."""
     t = cfg.tracking
     h0, w0 = pyr_left[0].shape
     depth = min(t.lk_stereo_levels or t.lk_levels, _max_pyramid_depth(h0, w0, t.lk_window))
     flow = pyramidal_lk(_extend_pyramid(pyr_left, depth), _extend_pyramid(pyr_right, depth),
                         tracks.xy, tracks.xy, window=t.lk_window, iters=t.lk_iters, eps=t.lk_eps)
-    T_rc = stereo_right_pose(baseline, device=T_cw.device) @ T_cw
-    p_w, tri_ok = triangulate_stereo(tracks.xy, flow.points, T_cw, T_rc, intr_left, intr_right)
+    with host_read(reads, "stereo.right_pose"):  # its baseline written to the card
+        T_rc = stereo_right_pose(baseline, device=T_cw.device) @ T_cw
+    # Two unit depths written to the card, and eigh's status read back.
+    with host_read(reads, "stereo.triangulate", 3):
+        p_w, tri_ok = triangulate_stereo(tracks.xy, flow.points, T_cw, T_rc, intr_left,
+                                         intr_right)
 
     disparity = tracks.xy[:, 0] - flow.points[:, 0]
     dy = (tracks.xy[:, 1] - flow.points[:, 1]).abs()
@@ -274,7 +285,8 @@ def _stereo_and_triangulate(
     return new_tracks, new_map, n_new
 
 
-def _evict_active(map_state: MapState, T_cw_newest: torch.Tensor, min_dist: float) -> MapState:
+def _evict_active(map_state: MapState, T_cw_newest: torch.Tensor, min_dist: float,
+                  reads: Optional[HostReads] = None) -> MapState:
     """Sliding-window eviction (map.cpp:78-120): drop the nearest old KF if
     closer than ``min_dist`` to the newest, else the farthest."""
     W = map_state.active_kf.shape[0]
@@ -286,11 +298,13 @@ def _evict_active(map_state: MapState, T_cw_newest: torch.Tensor, min_dist: floa
     dist_min = torch.where(occupied, dist, big)
     dist_max = torch.where(occupied, dist, -big)
     near, far = torch.argmin(dist_min), torch.argmax(dist_max)
-    evict = torch.where(dist_min[near] < min_dist, near, far)
+    with host_read(reads, "insert.evict"):  # the 0-dim index reads ``near``
+        evict = torch.where(dist_min[near] < min_dist, near, far)
     ar = torch.arange(W, device=idx.device)
     src = torch.clamp(torch.where(ar >= evict, ar + 1, ar), max=W - 1)
     new_idx = idx[src].clone()
-    new_idx[W - 1] = -1
+    with host_read(reads, "insert.evict"):  # a Python scalar written to the card
+        new_idx[W - 1] = -1
     return map_state._replace(active_kf=new_idx, n_active=map_state.n_active - 1)
 
 
@@ -301,12 +315,16 @@ def insert_keyframe(
     timestamp: torch.Tensor,
     frame_id: torch.Tensor,
     cfg: SlamConfig,
+    reads: Optional[HostReads] = None,
 ) -> Tuple[MapState, torch.Tensor]:
     """Write the KF row, link it to the previous KF, and maintain the active
     window (Map::InsertKeyFrame, map.cpp:17-48).  Returns (map, kf_id); at
-    capacity nothing is written and kf_id is -2."""
+    capacity nothing is written and kf_id is -2.  ``reads`` counts its host
+    syncs."""
     K = map_state.capacity_kf
-    n_kf, n_active = (int(v) for v in torch.stack([map_state.n_kf, map_state.n_active]).tolist())
+    with host_read(reads, "insert.counts"):
+        n_kf, n_active = (int(v) for v in
+                          torch.stack([map_state.n_kf, map_state.n_active]).tolist())
     if n_kf >= K:
         return map_state, torch.tensor(-2, dtype=torch.int32, device=T_cw.device)
     kf_id = map_state.n_kf
@@ -317,7 +335,8 @@ def insert_keyframe(
     obs_target = torch.where(linked, tracks.lm_idx, torch.full_like(tracks.lm_idx, L))
 
     def row(x, v):
-        return drop_set(x, tgt, v)
+        with host_read(reads, "insert.row"):  # the 0-dim index reads ``tgt``
+            return drop_set(x, tgt, v)
 
     m = map_state._replace(
         kf_T_cw=row(map_state.kf_T_cw, T_cw),
@@ -334,9 +353,10 @@ def insert_keyframe(
         n_kf=map_state.n_kf + 1,
     )
     if n_active >= m.active_kf.shape[0]:
-        m = _evict_active(m, T_cw, cfg.map.min_kf_distance)
+        m = _evict_active(m, T_cw, cfg.map.min_kf_distance, reads)
     active = m.active_kf.clone()
-    active[m.n_active.long()] = kf_id
+    with host_read(reads, "insert.active"):  # the 0-dim index reads ``n_active``
+        active[m.n_active.long()] = kf_id
     return m._replace(active_kf=active, n_active=m.n_active + 1), kf_id
 
 
@@ -381,19 +401,26 @@ def make_keyframe_step(
     baseline: float,
     timestamp: torch.Tensor,
     cfg: SlamConfig,
+    reads: Optional[HostReads] = None,
 ) -> Tuple[FrontendState, MapState, torch.Tensor]:
     """The keyframe path (frontend.cpp:111-119): detect new features,
     stereo-match, triangulate, insert the KF.  Returns (fs, map, kf_id); a
-    full keyframe table passes the state through unchanged with kf_id -2."""
-    if int(map_state.n_kf) >= map_state.capacity_kf:
-        return fs, map_state, torch.tensor(-2, dtype=torch.int32, device=img_left.device)
+    full keyframe table passes the state through unchanged with kf_id -2.
+    ``reads`` counts its host syncs."""
+    with host_read(reads, "kf.n_kf"):
+        full = int(map_state.n_kf) >= map_state.capacity_kf
+    if full:
+        return fs, map_state, torch.full((), -2, dtype=torch.int32, device=img_left.device)
     T_cw = fs.T_rk @ _ref_kf_pose(fs, map_state)
-    tracks = _detect_and_fill(fs.tracks, img_left, cfg.features.n_new_features, cfg)
-    tracks, m2, _ = _stereo_and_triangulate(
-        tracks, map_state, pyr_left, pyr_right, T_cw, intr_left, intr_right, baseline, cfg,
-        map_state.n_kf,
-    )
-    m3, kf_id = insert_keyframe(m2, tracks, T_cw, timestamp, fs.frame_id, cfg)
+    with span("kf.detect"):
+        tracks = _detect_and_fill(fs.tracks, img_left, cfg.features.n_new_features, cfg)
+    with span("kf.stereo"):
+        tracks, m2, _ = _stereo_and_triangulate(
+            tracks, map_state, pyr_left, pyr_right, T_cw, intr_left, intr_right, baseline, cfg,
+            map_state.n_kf, reads,
+        )
+    with span("kf.insert"):
+        m3, kf_id = insert_keyframe(m2, tracks, T_cw, timestamp, fs.frame_id, cfg, reads=reads)
     new_fs = fs._replace(tracks=tracks, ref_kf=kf_id, T_rk=se3.identity(device=img_left.device))
     return new_fs, m3, kf_id
 

@@ -91,13 +91,14 @@ where the host-read early exit stops after 2 steps and 3.9 ms (NVIDIA H100
 80GB HBM3, 700.00 W; ``chip_smoke.py`` phase ba).  A replay runs on the
 caller's current stream: the facade's own stream for the inline BA and the
 batched keyframe service, a side stream for the asynchronous BA
-(``core/system.py``).
+(``core/system.py``).  A call is a host span, ``ba_launch`` (copy-in,
+replay, the six copies out), added to ``record`` where the owner gives one.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, MutableMapping, Optional, Tuple
 
 import torch
 
@@ -106,6 +107,7 @@ from stereoslam_tpu_torch.core import backend as backend_mod
 from stereoslam_tpu_torch.core import frontend as frontend_mod
 from stereoslam_tpu_torch.core.state import FrontendState
 from stereoslam_tpu_torch.ops.camera import Intrinsics
+from stereoslam_tpu_torch.utils.prof import span
 
 
 def _flat(tree) -> List[torch.Tensor]:
@@ -229,11 +231,16 @@ class BAGraph(CapturedGraph):
     """Runs ``optimize_active_map`` as one replayed CUDA graph (on the CPU:
     on the same static buffers, without a graph).  Calling it with a map
     returns the map after the BA, its six BA fields copied out of the
-    graph's memory."""
+    graph's memory.  ``record``: a mapping to which each call adds its host
+    seconds under ``ba_launch``."""
 
-    def __init__(self, cfg: SlamConfig, intr: Intrinsics, device):
+    def __init__(self, cfg: SlamConfig, intr: Intrinsics, device,
+                 record: Optional[MutableMapping[str, float]] = None):
         super().__init__(device, partial(_window_ba, cfg, intr))
+        self.record = record
 
     def __call__(self, map_state):
-        out = self.run(backend_mod.BAMap.of(map_state))
-        return map_state._replace(**{f: t.clone() for f, t in zip(backend_mod.BA_OUTPUTS, out)})
+        with span("ba_launch", into=self.record):
+            out = self.run(backend_mod.BAMap.of(map_state))
+            return map_state._replace(**{f: t.clone()
+                                         for f, t in zip(backend_mod.BA_OUTPUTS, out)})

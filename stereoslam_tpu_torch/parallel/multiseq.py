@@ -64,6 +64,21 @@ selection is the unsharded run's (JAX's is global too); NCCL's sum is
 captured in the graph, Gloo's runs on the CPU, where there is no graph.
 :func:`make_data_parallel_step` is JAX's (step, shard_batch) pair.
 
+**What a step records** (``utils/prof.py``).  ``stage_s[key]`` holds one
+entry a step for every key, 0 where the step had none of it: host seconds
+of ``track`` (copy-in, the replay, the outcome read), ``keyframes`` (the
+keyframe service), ``retire``, and inside the service ``kf_branch`` (each
+served sequence's right pyramid and ``make_keyframe_step``) and
+``ba_launch`` (each ``BAGraph`` call: copy-in, replay, copies out);
+and ``host_wait``, the seconds blocked in the step's host reads.  A graph
+replay's device time is not recorded here: a trace of the card holds it.
+``reads`` (a ``HostReads``) counts every blocking host sync by site
+(``outcome``; ``kf.n_kf``, ``stereo.*`` and ``insert.*`` inside
+``make_keyframe_step``; ``service.kf_id``; ``detect`` at a retire), and
+``step_reads`` holds each step's count; ``outcome`` and ``detect`` wait on
+an event (``EVENT_READ_SITES``), the others on a synchronizing call.  Every
+stage is a ``slam.*`` span on the profiler's timeline while it records.
+
 **Undistortion.**  As in JAX (``multiseq.py:218-220``), the batched mode reads
 only the pinhole intrinsics of ``cfg.camera`` and tracks distorted frames
 as they are; a config with ``need_undistortion`` logs that once.
@@ -73,7 +88,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from collections import defaultdict
 from contextlib import contextmanager
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -93,12 +107,17 @@ from stereoslam_tpu_torch.ops.image import build_lk_pyramid
 from stereoslam_tpu_torch.ops.orb import pyramid_orb
 from stereoslam_tpu_torch.parallel.distributed import host_local_array
 from stereoslam_tpu_torch.parallel.mesh import axis_index, axis_size
+from stereoslam_tpu_torch.utils.prof import HostReads, host_read, span
 
 log = logging.getLogger(__name__)
 
 # Columns of the batched step's packed float32 outcome (B, OUTCOME_COLUMNS).
 OUTCOME_COLUMNS = ("num_inliers", "num_tracked", "status", "make_kf", "serviced", "retry",
                    "deep")
+# The per-step keys of ``MultiSeqVO.stage_s``: host seconds.
+STEP_KEYS = ("track", "keyframes", "retire", "kf_branch", "ba_launch", "host_wait")
+# Read sites that wait on an event (not a synchronizing call).
+EVENT_READ_SITES = ("outcome", "detect")
 
 
 def _take(tree, b: int):
@@ -410,25 +429,29 @@ class MultiSeqVO:
         self._last_counts: Optional[np.ndarray] = None
         self._bad = cfg.features.num_features_tracking_bad
         self.graph = TrackGraph(cfg, self.intr, dev, frame_fn=self._frame)
+        # The step in progress: seconds by key (see the module docstring).
+        self._rec = defaultdict(float)
         # The windowed BA of a serviced keyframe, one sequence's map at a
         # time: one replayed CUDA graph (core/graphs.py).
-        self._ba = BAGraph(self._run_cfg, self.intr, dev)
+        self._ba = BAGraph(self._run_cfg, self.intr, dev, record=self._rec)
         if dev.type == "cuda":
             self._host_outcome = torch.empty((self.batch, len(OUTCOME_COLUMNS)),
                                              dtype=torch.float32, pin_memory=True)
             self._outcome_landed = torch.cuda.Event()
         else:
             self._host_outcome = None
-        # Host reads of step outcomes (one a step) and of keyframe steps'
-        # detections (one a keyframe step, at its retire).
-        self.outcome_reads = 0
-        self.detect_reads = 0
+        # Blocking host syncs by site, and each step's count.
+        self.reads = HostReads()
+        self.step_reads: List[int] = []
         self.steps = 0
         self.keyframes_serviced = 0
-        # Host wall seconds a step by stage: "track" (copy-in, replay, the
-        # outcome read), "keyframes" (keyframe service and detection),
-        # "retire" (liveness and loop events).
+        # One entry a step for every key of STEP_KEYS: seconds.
         self.stage_s = defaultdict(list)
+
+    @property
+    def outcome_reads(self) -> int:
+        """Reads of step outcomes: one a step."""
+        return self.reads.counts["outcome"]
 
     def _share(self, rows: torch.Tensor) -> torch.Tensor:
         """This rank's per-sequence rows -> the whole batch's (one sum over
@@ -504,46 +527,49 @@ class MultiSeqVO:
         device and their timestamps."""
         if self._pyr_prev is None:
             raise RuntimeError("MultiSeqVO.initialize must run before the first step")
-        t0 = time.perf_counter()
-        left, fs, pyr, packed = self.graph.run(lr_u8, self._pyr_prev, self.fs, self.maps)
-        if self._host_outcome is not None:
-            self._host_outcome.copy_(packed, non_blocking=True)
-            self._outcome_landed.record()
-        self.fs, self._pyr_prev = fs, pyr
-        self.steps += 1
+        rec, reads = self._rec, self.reads
+        rec.clear()
+        n0, s0 = reads.n, reads.s
+        with span("track", into=rec):
+            left, fs, pyr, packed = self.graph.run(lr_u8, self._pyr_prev, self.fs, self.maps)
+            if self._host_outcome is not None:
+                self._host_outcome.copy_(packed, non_blocking=True)
+                self._outcome_landed.record()
+            self.fs, self._pyr_prev = fs, pyr
+            self.steps += 1
         # Older steps retire while the card runs this one.
-        t1 = time.perf_counter()
-        self._retire_beyond(self.readback_lag - 1)
-        t2 = time.perf_counter()
-        o = self._read_outcome(packed)
-        counts = np.zeros((self.batch, 6), np.int64)
-        counts[:, :3] = o[:, :3]
-        counts[:, 3] = -1
-        detect = None
-        serviced = np.nonzero(o[self.rows.start:self.rows.stop,
-                                OUTCOME_COLUMNS.index("serviced")])[0]
-        t3 = time.perf_counter()
-        if serviced.size:
-            kf_ids, detect = self._service_keyframes(serviced, lr_u8, left, pyr, ts)
-            counts[self.rows.start:self.rows.stop, 3] = kf_ids
-        self._inflight.append(_Entry(counts, detect))
-        t4 = time.perf_counter()
-        self._retire_beyond(self.readback_lag)
-        t5 = time.perf_counter()
-        self.stage_s["track"].append((t1 - t0) + (t3 - t2))
-        self.stage_s["keyframes"].append(t4 - t3)
-        self.stage_s["retire"].append((t2 - t1) + (t5 - t4))
+        with span("retire", into=rec):
+            self._retire_beyond(self.readback_lag - 1)
+        with span("track", into=rec):
+            o = self._read_outcome(packed)
+            counts = np.zeros((self.batch, 6), np.int64)
+            counts[:, :3] = o[:, :3]
+            counts[:, 3] = -1
+            detect = None
+            serviced = np.nonzero(o[self.rows.start:self.rows.stop,
+                                    OUTCOME_COLUMNS.index("serviced")])[0]
+        with span("keyframes", into=rec):
+            if serviced.size:
+                kf_ids, detect = self._service_keyframes(serviced, lr_u8, left, pyr, ts)
+                counts[self.rows.start:self.rows.stop, 3] = kf_ids
+            self._inflight.append(_Entry(counts, detect))
+        with span("retire", into=rec):
+            self._retire_beyond(self.readback_lag)
+        rec["host_wait"] = reads.s - s0
+        for key in STEP_KEYS:
+            self.stage_s[key].append(rec.get(key, 0.0))
+        self.step_reads.append(reads.n - n0)
         if self._last_counts is None:
             return np.full(self.batch, self._bad + 1, np.int64)
         return self._last_counts[:, 0]
 
     def _read_outcome(self, packed: torch.Tensor) -> np.ndarray:
         """The step's one device-to-host read."""
-        if self._host_outcome is not None:
-            self._outcome_landed.synchronize()
-            packed = self._host_outcome
-        self.outcome_reads += 1
-        return packed.numpy().astype(np.int64)
+        with host_read(self.reads, "outcome"):
+            if self._host_outcome is not None:
+                self._outcome_landed.synchronize()
+                packed = self._host_outcome
+            return packed.numpy().astype(np.int64)
 
     def _service_keyframes(self, serviced: np.ndarray, lr_u8, left, pyr, ts):
         """Keyframe work of the selected sequences (JAX ``kf_service``; this
@@ -556,16 +582,20 @@ class MultiSeqVO:
         kf_ids = np.full(B, -1, np.int64)
         desc = torch.zeros((B, cfg.loop.descriptor_dim), dtype=torch.float32, device=dev)
         for b in serviced.tolist():
-            right = lr_u8[b, 1].to(torch.float32)
-            t = torch.full((), float(ts[b]), dtype=torch.float32, device=dev)
-            fs_b, m_b, kf = frontend_mod.make_keyframe_step(
-                left[b], tuple(p[b] for p in pyr), build_lk_pyramid(right, cfg.tracking.lk_levels),
-                _take(self.fs, b), _take(self.maps, b), self.intr, self.intr_right,
-                cfg.camera.baseline, t, cfg)
+            with span("kf_branch", into=self._rec):
+                right = lr_u8[b, 1].to(torch.float32)
+                t = torch.full((), float(ts[b]), dtype=torch.float32, device=dev)
+                fs_b, m_b, kf = frontend_mod.make_keyframe_step(
+                    left[b], tuple(p[b] for p in pyr),
+                    build_lk_pyramid(right, cfg.tracking.lk_levels), _take(self.fs, b),
+                    _take(self.maps, b), self.intr, self.intr_right, cfg.camera.baseline, t, cfg,
+                    reads=self.reads)
             if self.enable_backend:
                 # The batched mode runs a BA on every serviced keyframe.
                 m_b = self._ba(m_b)
-            kf = int(kf)
+            # The wait for the keyframe's id is the wait for its BA.
+            with host_read(self.reads, "service.kf_id"):
+                kf = int(kf)
             kf_ids[b] = kf
             if self.enable_loop:
                 desc[b] = self.model(left[b])
@@ -601,10 +631,10 @@ class MultiSeqVO:
         c = entry.counts
         if entry.detect is not None:
             detect, landed = entry.detect
-            if landed is not None:
-                landed.synchronize()
-            c[self.rows.start:self.rows.stop, 4:] = detect.numpy()
-            self.detect_reads += 1
+            with host_read(self.reads, "detect"):
+                if landed is not None:
+                    landed.synchronize()
+                c[self.rows.start:self.rows.stop, 4:] = detect.numpy()
         self._last_counts = c
         self.alive &= c[:, 0] > self._bad
         if self.verify_loops:

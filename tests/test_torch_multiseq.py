@@ -23,6 +23,7 @@ import torch
 
 torch.set_num_threads(2)
 
+import _fleet  # noqa: E402
 from stereoslam_tpu import config as jconfig  # noqa: E402
 from stereoslam_tpu.core import state as jstate  # noqa: E402
 from stereoslam_tpu.ops.camera import Intrinsics as JIntr  # noqa: E402
@@ -41,27 +42,8 @@ N_FRAMES = 12
 SNAPSHOTS = (3, 7)  # a keyframe-free step and the motion clock's keyframe step
 
 
-def make_cfg(mod, seq):
-    """tests/test_system_vo.py make_cfg, for either package's config module."""
-    return mod.SlamConfig(
-        camera=mod.CameraConfig(
-            fx=seq.fx, fy=seq.fy, cx=seq.cx, cy=seq.cy,
-            fx_right=seq.fx, fy_right=seq.fy, cx_right=seq.cx, cy_right=seq.cy,
-            bf=seq.fx * seq.baseline,
-        ),
-        features=mod.FeatureConfig(
-            n_init_features=200, n_new_features=100, max_features=256,
-            num_features_init_good=50, num_features_tracking_good=50,
-            num_features_tracking_bad=10,
-        ),
-        map=mod.MapConfig(max_keyframes=256, max_landmarks=20000),
-        image_height=seq.left.shape[1],
-        image_width=seq.left.shape[2],
-    )
-
-
-def _stack(seqs, t, field):
-    return np.stack([getattr(s, field)[t] for s in seqs])
+make_cfg = _fleet.make_cfg
+_stack = _fleet.stack
 
 
 def _final_positions(fs_T_rk, ref_kf, kf_T_cw):
@@ -79,7 +61,7 @@ def _gt_position(seq, t):
 
 @pytest.fixture(scope="module")
 def seqs():
-    return [generate_sequence(n_frames=N_FRAMES, trajectory="forward", seed=s) for s in (3, 5)]
+    return _fleet.sequences(N_FRAMES)
 
 
 @pytest.fixture(scope="module")
