@@ -40,7 +40,7 @@ failure:
              against replayed, interleaved: wall time, device time, busy
              share; ``ops/svd.py`` against ``torch.linalg.svd`` (bit for
              bit, float32 and float64).
-6. ba      — the windowed BA as one CUDA graph (``core/graphs.py``
+6. ba      — the windowed BA's fixed-step CUDA graph (``core/graphs.py``
              ``BAGraph``) and the asynchronous BA: (a) on phase main's
              final map, the replay against the eager ``optimize_active_map``
              and the fixed steps against the early exit (every output
@@ -50,9 +50,10 @@ failure:
              through ``StereoSlam(inline_ba=False)`` at lag 0 and 10, twice
              each: no LOST, keyframes in band, ATE, bit-for-bit repeats,
              the launches, and the BA's overlap with tracked frames (CUDA
-             events); (c) the inline BA through the graph against the
-             eager early exit in turns: keyframe frame time, host syncs,
-             and every run equal to phase main's.
+             events); (c) the inline BA through its stepped graphs
+             (``SteppedBA``) against the eager early exit in turns:
+             keyframe frame time, host syncs, and every run equal to phase
+             main's.
 7. cli     — the user's entry point, ``stereoslam_tpu_torch.run``: writes phase
              main's 100 frames as a KITTI directory (8-bit grey PNGs by a
              stdlib writer, ``times.txt``, a poses file, the config as
@@ -146,7 +147,7 @@ failure:
              no LOST, >= 3 keyframes a sequence, at most ``kf_sub`` a step,
              one graph replay a step, the batched LK launch on every step,
              the pinned per-sequence (KFs, ATE); the keyframe service with
-             its BA through the BA graph against the eager early exit in
+             its BA through its stepped graphs against the eager early exit in
              one process (host ms a step, the maps bit for bit); then a checking
              run: replay
              against the eager batched step (bit for bit), each sequence's
@@ -1192,8 +1193,8 @@ def check_ba_async(dev, cfg, staged, seq, card: str) -> int:
 
 
 def check_ba_inline(dev, cfg, staged, seq, main_slam, card: str) -> None:
-    """(c) The inline BA through its graph against the eager early-exit BA,
-    in turns in one process: keyframe frames' wall time (card synchronized
+    """(c) The inline BA through its stepped graphs against the eager
+    early-exit BA, in turns in one process: keyframe frames' wall time (card synchronized
     around each frame) and host syncs, FPS at lag 0 (card synchronized
     after each frame; in turns) and at lag 10 (at the end; one run each),
     and the runs bit for bit."""
@@ -2929,7 +2930,7 @@ def check_multiseq_world(dev, ms, card: str) -> None:
 
 def check_multiseq_service(dev, seqs, cfg, card: str) -> None:
     """(b) Phase M's keyframe service with its BA through the eager
-    early-exit BA and through the BA graph, one run each in one process:
+    early-exit BA and through its stepped graphs, one run each in one process:
     aggregate FPS and the host's ms a step in the keyframe stage after the
     warm-up, and the runs bit for bit."""
     from stereoslam_tpu_torch.core import backend as B

@@ -1,7 +1,7 @@
 """One CUDA graph of the tracked frame per ``StereoSlam`` (and of the
-batched tracked step per ``MultiSeqVO``), and one of the windowed BA per
+batched tracked step per ``MultiSeqVO``), and the windowed BA's graphs per
 facade: the port's counterparts of the JAX package's jitted frame and BA
-programs.  Both are a :class:`CapturedGraph`: a function that reads nothing
+programs.  Each is a :class:`CapturedGraph`: a function that reads nothing
 back and takes its shapes from the config, captured once and replayed on
 static input buffers.
 
@@ -21,7 +21,12 @@ feed thread that stages the next frames meanwhile does not break it, on a
 capture stream of its own: cuBLAS keeps its workspace per stream, so two
 graphs captured on torch's shared capture stream would share one and race
 when they replay on two streams at once, as the asynchronous BA does (two
-such runs of phase main's frames differed).  A failed capture raises; a
+such runs of phase main's frames differed).  Python's cyclic garbage
+collector is held off during the capture: a facade and its graphs form
+reference cycles (a graph's function is a bound method of its owner), so a
+dropped facade's graphs are freed whenever the collector next runs, and a
+graph torn down inside another's capture (``cudaGraphExecDestroy``, its
+memory pool released) invalidates that capture.  A failed capture raises; a
 CUDA tensor never falls back to the eager frame.
 
 **Inputs: copied in before every replay.**  The graph owns a static buffer
@@ -70,35 +75,48 @@ multi-sequence mode passes its tracked step over B sequences
 copy-in is reckoned there.  Capture, copy-in and launch counts are the
 same.
 
-**The windowed BA** (:class:`BAGraph`): ``core/backend.py``
+**The windowed BA** comes in two runners over ``core/backend.py``
 ``optimize_active_map`` (the window's gather and landmark compaction, the
-float64 Schur LM of ``ops/schur.py`` with every one of its ``rounds x
-iters`` steps run and its exit tests frozen on the device, the write-back)
-reads nothing back, and its shapes come from the config (W, N, C = W * N,
-the map's capacities), so it is captured at the facade's first BA, with the
-same warm-up, ``thread_local`` capture and launch counts.  Its inputs are
-the map fields the BA reads (``BAMap``), copied in before every replay: at
-KITTI geometry with the full-size state (1536 keyframe rows of 400
-features, 131,072 landmark rows, W = 7) 11.07 MB, of which the keyframe
-feature tables are 7.99 MB (1536 x 400 x (8 + 4 + 1) bytes) and the
-landmark fields 2.88 MB: about 6.6 us of the card's time at 3.35 TB/s.
-Its six outputs (``kf_T_cw``, ``kf_rel_prev``, ``lm_pos``, ``kf_feat_lm``,
-``lm_obs_count``, ``lm_outlier``; 4.88 MB, about 2.9 us) are copied out of
-the graph's memory before they become the map's fields, since the next
-replay overwrites them.  A replay computes all ``rounds x iters`` steps, the
-frozen ones too: on phase main's final map 88.0-88.8 ms of the card's time,
-where the host-read early exit stops after 2 steps and 3.9 ms (NVIDIA H100
-80GB HBM3, 700.00 W; ``chip_smoke.py`` phase ba).  A replay runs on the
-caller's current stream: the facade's own stream for the inline BA and the
-batched keyframe service, a side stream for the asynchronous BA
-(``core/system.py``).  A call is a host span, ``ba_launch`` (copy-in,
-replay, the six copies out), added to ``record`` where the owner gives one.
+float64 Schur LM of ``ops/schur.py``, the write-back), whose shapes come
+from the config (W, N, C = W * N, the map's capacities); both capture at
+the facade's first BA, with the same warm-up, ``thread_local`` capture and
+launch counts.  Their inputs are the map fields the BA reads (``BAMap``),
+copied in before every BA: at KITTI geometry with the full-size state
+(1536 keyframe rows of 400 features, 131,072 landmark rows, W = 7) 11.07 MB,
+of which the keyframe feature tables are 7.99 MB (1536 x 400 x (8 + 4 + 1)
+bytes) and the landmark fields 2.88 MB: about 6.6 us of the card's time at
+3.35 TB/s.  Their six outputs (``kf_T_cw``, ``kf_rel_prev``, ``lm_pos``,
+``kf_feat_lm``, ``lm_obs_count``, ``lm_outlier``; 4.88 MB, about 2.9 us) are
+copied out of the graphs' memory before they become the map's fields,
+since the next BA overwrites them.  A BA runs on the caller's current
+stream.  A call is a host span, ``ba_launch`` (copy-in, the replays, the
+exit reads of the stepped runner, the six copies out), added to ``record``
+where the owner gives one.
+
+- :class:`SteppedBA`, for a caller that waits for the result (the inline
+  BA and the batched keyframe service): a prologue graph (gather,
+  compaction, the float64 window and the first carry, into static
+  buffers), then one replay of a one-step LM graph a step and one of a
+  round-end graph a round, each writing the carry in place, the host
+  reading each exit test (``ba.exit``: the flag copied to pinned memory
+  by the graph's last node, an event waited on) with ``ops/schur.py``
+  ``_early_exit``'s control flow, then an epilogue graph
+  (``orthonormalize``, the final chi2, the write-back).  It stops at the
+  exit rule, as the JAX package's ``while_loop``s do, and ``steps`` keeps
+  each BA's LM steps: on the fleet's windows 6-10 of the 50 (``PERF.md``).
+- :class:`BAGraph`, for the asynchronous BA, which must read nothing back:
+  one graph of every ``rounds x iters`` step, the exit tests frozen on the
+  device.  A replay computes the frozen steps too: on phase main's final
+  map 88.0-88.8 ms of the card's time, where the early exit stops after 2
+  steps and 3.9 ms (NVIDIA H100 80GB HBM3, 700.00 W; ``chip_smoke.py``
+  phase ba); it runs on a side stream (``core/system.py``).
 """
 
 from __future__ import annotations
 
+import gc
 from functools import partial
-from typing import Callable, List, MutableMapping, Optional, Tuple
+from typing import Callable, List, MutableMapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -106,20 +124,26 @@ from stereoslam_tpu_torch.config import SlamConfig
 from stereoslam_tpu_torch.core import backend as backend_mod
 from stereoslam_tpu_torch.core import frontend as frontend_mod
 from stereoslam_tpu_torch.core.state import FrontendState
+from stereoslam_tpu_torch.ops import schur
 from stereoslam_tpu_torch.ops.camera import Intrinsics
-from stereoslam_tpu_torch.utils.prof import span
+from stereoslam_tpu_torch.utils.prof import HostReads, host_read, span
 
 
 def _flat(tree) -> List[torch.Tensor]:
-    """The tensors of a nested tuple (NamedTuples included), in order."""
+    """The tensors of a nested tuple (NamedTuples included), in order; other
+    leaves (a Python float) are constants and hold no buffer."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if not isinstance(tree, (tuple, list)):
+        return []
     return [t for item in tree for t in _flat(item)]
 
 
 def _clone(tree):
     if isinstance(tree, torch.Tensor):
         return tree.clone()
+    if not isinstance(tree, (tuple, list)):
+        return tree
     items = [_clone(item) for item in tree]
     return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
@@ -164,13 +188,16 @@ class CapturedGraph:
         self._launch_deltas: Tuple[int, ...] = ()
         self.replays = 0
 
-    def run(self, *src):
-        """Copy every input into its static buffer, replay (or call, on the
-        CPU), and return the static outputs, valid until the next call."""
+    def _load(self, src) -> None:
         if self._inputs is None:
             self._inputs = _clone(src)
         else:
             _copy_into(self._inputs, src)
+
+    def run(self, *src):
+        """Copy every input into its static buffer, replay (or call, on the
+        CPU), and return the static outputs, valid until the next call."""
+        self._load(src)
         if self.device.type == "cpu":
             out = self._fn(*self._inputs)
             if self._outputs is None:
@@ -186,6 +213,11 @@ class CapturedGraph:
             setattr(fn, attr, getattr(fn, attr) + delta)
         return self._outputs
 
+    def capture(self, *src) -> None:
+        """Copy the inputs in, warm up and capture, without a replay."""
+        self._load(src)
+        self._capture()
+
     def _capture(self) -> None:
         counters = _kernel_counters()
         stream = torch.cuda.current_stream(self.device)
@@ -196,10 +228,17 @@ class CapturedGraph:
         stream.wait_stream(side)
         warm = [getattr(fn, attr) for fn, attr in counters]
         graph = torch.cuda.CUDAGraph()
-        # A capture stream of its own, so a cuBLAS workspace of its own.
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
-                              capture_error_mode="thread_local"):
-            self._outputs = self._fn(*self._inputs)
+        # No dead graph may be torn down inside the capture (module docstring).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # A capture stream of its own, so a cuBLAS workspace of its own.
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
+                                  capture_error_mode="thread_local"):
+                self._outputs = self._fn(*self._inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self._launch_deltas = tuple(getattr(fn, attr) - w for (fn, attr), w in zip(counters, warm))
         for (fn, attr), w in zip(counters, warm):
             setattr(fn, attr, w)
@@ -228,19 +267,114 @@ def _window_ba(cfg: SlamConfig, intr: Intrinsics, ba_map: backend_mod.BAMap):
 
 
 class BAGraph(CapturedGraph):
-    """Runs ``optimize_active_map`` as one replayed CUDA graph (on the CPU:
-    on the same static buffers, without a graph).  Calling it with a map
-    returns the map after the BA, its six BA fields copied out of the
-    graph's memory.  ``record``: a mapping to which each call adds its host
-    seconds under ``ba_launch``."""
+    """Runs ``optimize_active_map`` as one replayed CUDA graph of the fixed
+    steps (on the CPU: on the same static buffers, without a graph).
+    Calling it with a map returns the map after the BA, its six BA fields
+    copied out of the graph's memory.  ``record``: a mapping to which each
+    call adds its host seconds under ``ba_launch``."""
 
     def __init__(self, cfg: SlamConfig, intr: Intrinsics, device,
                  record: Optional[MutableMapping[str, float]] = None):
         super().__init__(device, partial(_window_ba, cfg, intr))
         self.record = record
 
+    def _solve(self, ba_map: backend_mod.BAMap) -> Tuple[torch.Tensor, ...]:
+        """The six BA fields after the BA, in the graphs' memory."""
+        return self.run(ba_map)
+
     def __call__(self, map_state):
         with span("ba_launch", into=self.record):
-            out = self.run(backend_mod.BAMap.of(map_state))
+            out = self._solve(backend_mod.BAMap.of(map_state))
             return map_state._replace(**{f: t.clone()
                                          for f, t in zip(backend_mod.BA_OUTPUTS, out)})
+
+
+class _BAState(NamedTuple):
+    """The stepped BA's static state, shared by its graphs."""
+
+    gathered: backend_mod.Gathered
+    win: "schur._Window"
+    n_base: torch.Tensor
+    carry: "schur._Carry"
+
+
+def _ba_open(cfg: SlamConfig, intr: Intrinsics, ba_map: backend_mod.BAMap) -> _BAState:
+    prob, gathered = backend_mod.gather_window(ba_map, cfg)
+    win, n_base, carry = schur._start(prob, intr, cfg.backend.chi2_threshold, schur.DAMPING0)
+    return _BAState(gathered, win, n_base, schur._Carry(*(t.clone() for t in carry)))
+
+
+class SteppedBA(BAGraph):
+    """Runs ``optimize_active_map`` for a caller that waits for its result,
+    stopping at the exit rule: its own graph is the prologue (gather,
+    compaction, the float64 window and the first carry); then one replay of
+    a one-step LM graph a step and one of a round-end graph a round, the
+    host reading each exit test, as ``ops/schur.py`` ``_early_exit`` runs
+    them; then an epilogue graph (``orthonormalize``, the final chi2, the
+    write-back).  On the CPU: the same functions on the same static
+    buffers, without graphs.  Called as :class:`BAGraph`; ``steps`` gains
+    the LM steps each BA ran, and ``reads`` (a ``HostReads``), where given,
+    counts each exit read under ``ba.exit``."""
+
+    def __init__(self, cfg: SlamConfig, intr: Intrinsics, device,
+                 record: Optional[MutableMapping[str, float]] = None,
+                 reads: Optional[HostReads] = None):
+        CapturedGraph.__init__(self, device, partial(_ba_open, cfg, intr))  # the prologue
+        self.record, self.reads = record, reads
+        self._rounds, self._iters = cfg.backend.ba_rounds, cfg.backend.ba_iters
+        self._chi2 = cfg.backend.chi2_threshold
+        self._step = CapturedGraph(device, self._lm_step)
+        self._round = CapturedGraph(device, self._end_round)
+        self._close = CapturedGraph(device, self._write_back)
+        self._state: Optional[_BAState] = None
+        self.steps: List[int] = []
+        # Where each exit test lands on the host: a copy captured at the end
+        # of the step's and the round's graphs, waited for through an event.
+        if self.device.type == "cuda":
+            self._exit_host = torch.zeros((), dtype=torch.bool, pin_memory=True)
+            self._exit_landed = torch.cuda.Event()
+        else:
+            self._exit_host = None
+
+    def _land(self, flag: torch.Tensor) -> torch.Tensor:
+        if self._exit_host is not None:
+            self._exit_host.copy_(flag, non_blocking=True)
+        return flag
+
+    def _lm_step(self) -> torch.Tensor:
+        st = self._state
+        return self._land(schur._step_in_place(st.win, st.carry))
+
+    def _end_round(self) -> torch.Tensor:
+        st = self._state
+        return self._land(schur._end_round_in_place(st.win, st.carry, st.n_base, self._chi2))
+
+    def _write_back(self) -> Tuple[torch.Tensor, ...]:
+        st, (ba_map,) = self._state, self._inputs
+        c = st.carry
+        res = schur._finish(st.win, c.cam_T, c.lm_pos, c.inlier, ba_map.kf_T_cw.dtype)
+        m = backend_mod.write_back(ba_map, st.gathered, res)
+        return tuple(getattr(m, f) for f in backend_mod.BA_OUTPUTS)
+
+    def _read(self, graph: CapturedGraph) -> bool:
+        """Run ``graph`` and read its exit test on the host."""
+        out = graph.run()
+        with host_read(self.reads, "ba.exit"):
+            if self._exit_host is not None:
+                self._exit_landed.record()
+                self._exit_landed.synchronize()
+                out = self._exit_host
+            return bool(out)
+
+    def _solve(self, ba_map: backend_mod.BAMap) -> Tuple[torch.Tensor, ...]:
+        if self.device.type == "cuda" and self._close.graph is None:
+            # The warm-ups of the step and the round advance the carry:
+            # capture every graph before the prologue's replay below.
+            self._state = self.run(ba_map)
+            for g in (self._step, self._round, self._close):
+                g.capture()
+        self._state = self.run(ba_map)
+        self.steps.append(schur._early_exit(lambda: self._read(self._step),
+                                            lambda: self._read(self._round),
+                                            self._rounds, self._iters))
+        return self._close.run()

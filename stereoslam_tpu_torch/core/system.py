@@ -31,13 +31,15 @@ resolved (verified, corrected) at the next keyframe's retire, before its
 own detection starts, or when a public read drains the queue: the JAX
 package's order whenever a verdict has landed by the next keyframe.
 
-**The windowed BA** runs as one replayed CUDA graph (``core/graphs.py``
-``BAGraph``; every LM step runs, its exit tests frozen on the device, so it
-reads nothing back).  With ``inline_ba`` (the default without a mesh) it
-runs in the keyframe branch on the facade's stream.  With
+**The windowed BA.**  With ``inline_ba`` (the default without a mesh) it
+runs in the keyframe branch on the facade's stream, and the frame waits for
+it: ``core/graphs.py`` ``SteppedBA`` replays one LM step a graph and reads
+each exit test on the host, so it stops at the exit rule.  With
 ``inline_ba=False`` (the default with a mesh, as in JAX) it is
-*asynchronous*, JAX's ``_pending_ba``: when a keyframe retires (and at
-initialization) the BA graph is replayed on a side stream that first waits
+*asynchronous*, JAX's ``_pending_ba``, and reads nothing back: one CUDA
+graph of every LM step, its exit tests frozen on the device
+(``BAGraph``).  When a keyframe retires (and at initialization) that
+graph is replayed on a side stream that first waits
 for the facade's stream, and the host goes on without waiting; the frames
 tracked meanwhile read the pre-BA map.  At most one BA is in flight.  Its
 result is swapped into the map by a device-side wait of the facade's
@@ -87,7 +89,7 @@ from stereoslam_tpu_torch.config import SlamConfig
 from stereoslam_tpu_torch.core import frontend as frontend_mod
 from stereoslam_tpu_torch.core import loopclosing as loop_mod
 from stereoslam_tpu_torch.core.backend import BA_OUTPUTS, BAMap
-from stereoslam_tpu_torch.core.graphs import BAGraph, TrackGraph
+from stereoslam_tpu_torch.core.graphs import BAGraph, SteppedBA, TrackGraph
 from stereoslam_tpu_torch.core.maintenance import compact_landmarks
 from stereoslam_tpu_torch.core.state import INITING, LOST, TRACKING_GOOD, init_all
 from stereoslam_tpu_torch.ops.camera import Intrinsics, undistort_image, undistortion_map
@@ -188,9 +190,11 @@ class StereoSlam:
             self._pre_right = partial(_widen_remap, self.undistortion_maps[1])
         self.fs, self.map, self.loop = init_all(cfg, self.device)
         self.inline_ba = bool(inline_ba) if inline_ba is not None else mesh is None
-        # The windowed BA (map -> map), its stream for the asynchronous BA,
-        # and the BA in flight: (its event on the card or None, its fields).
-        self._ba = BAGraph(cfg, self.intr_left, self.device)
+        # The windowed BA (map -> map): stepped to its exit rule where the
+        # frame waits for it, one fixed-step graph for the asynchronous BA;
+        # the latter's stream, and the BA in flight: (its event on the card
+        # or None, its fields).
+        self._ba = (SteppedBA if self.inline_ba else BAGraph)(cfg, self.intr_left, self.device)
         self._ba_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._pending_ba = None
         self.track_graph = TrackGraph(cfg, self.intr_left, self.device, pre_left=self._pre_left)

@@ -12,21 +12,25 @@ bit for bit; the JAX package builds one-hot (C, W*N) selection matrices for
 the MXU instead.  Same damping schedule (/3 on accept, x10 on reject) but for
 its floor (below), exit rules and masks.
 
-**Exit tests on the device.**  The JAX package's two ``while_loop``s (a
-round's LM iterations until a converged step, the rounds until the inlier
-ratio passes) become one step function, ``_lm_step``, and two drivers.  On
-CUDA tensors every ``rounds x iters`` step runs and the carry (poses,
-landmarks, damping, inliers) is frozen by ``torch.where`` on two device
-flags, the round's ``done`` and the solve's ``stop``: the loops' result with
-no host read, so :func:`solve_window_ba` and the backend's BA around it can
-be captured in a CUDA graph (``core/graphs.py`` ``BAGraph``).  A replay
-computes every step, the frozen ones too: PyTorch 2.11, the card's, cannot
-capture a step into a conditional graph node (no
-``CUDAGraph.begin_capture_to_if_node``), so the device cannot skip them as
-the ``while_loop`` exits do.  On CPU
-tensors, where a read is free, the host reads each exit test and stops
-early.  The two give the same result bit for bit; a CUDA tensor never takes
-the host-read driver unless the caller asks (``host_exit=True``).
+**Exit tests: two loops over one step.**  The JAX package's two
+``while_loop``s (a round's LM iterations until a converged step, the rounds
+until the inlier ratio passes) become one step function, ``_lm_step``, a
+round's end, ``_classify``, and two loops over them that give the same result bit
+for bit.  ``_early_exit`` reads each exit test on the host and stops at the
+rule: the eager solve on CPU tensors (where a read is free) or where the
+caller asks (``host_exit=True``), and ``core/graphs.py`` ``SteppedBA``, which
+replays a one-step graph (``_step_in_place``) and a round-end graph
+(``_end_round_in_place``) from the host, for callers that wait for the
+result (the inline BA, the fleet's keyframe service).  ``_fixed_steps``
+reads nothing back: every ``rounds x iters`` step runs and the carry
+(poses, landmarks, damping, inliers) is frozen by ``torch.where`` on two
+device flags, the round's ``done`` and the solve's ``stop``, so the whole
+solve is one CUDA graph (``core/graphs.py`` ``BAGraph``) that the
+asynchronous BA replays on a side stream; its frozen steps still compute,
+since PyTorch 2.11, the card's, cannot capture a step into a conditional
+graph node (no ``CUDAGraph.begin_capture_to_if_node``).  On CUDA tensors
+:func:`solve_window_ba` takes the fixed steps unless the caller asks for
+the host's exit.
 
 The solve runs in float64 and returns the caller's dtype.  Where a landmark
 is seen from nearly one viewpoint its block of C is singular up to the
@@ -56,7 +60,7 @@ to the JAX package's 1e-8 to compare the two floors over seeds.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -65,6 +69,8 @@ from stereoslam_tpu_torch.ops.camera import Intrinsics
 
 # The damping's floor; None holds it at ``damping0`` (see the module docstring).
 DAMPING_FLOOR = None
+# The damping a solve starts from.
+DAMPING0 = 1e-3
 
 
 class BAProblem(NamedTuple):
@@ -268,19 +274,64 @@ def _classify(win: _Window, cam_T, lm_pos, n_base, chi2_threshold: float):
     return inlier, inlier.sum().to(torch.float32) / n_base > 0.5
 
 
-def _early_exit(win, cam_T, lm_pos, inlier, lam, n_base, rounds, iters, chi2_threshold):
-    """The rounds with the host reading each exit test: a round ends at the
-    first converged step, the solve at the first round whose ratio test
-    passes."""
+class _Carry(NamedTuple):
+    """What the LM loop changes: a step the poses, landmarks and damping, a
+    round's end the inliers."""
+
+    cam_T: torch.Tensor   # (W, 4, 4) float64
+    lm_pos: torch.Tensor  # (C, 3) float64
+    lam: torch.Tensor     # () float64 damping
+    inlier: torch.Tensor  # (W, N) bool
+
+
+def _start(prob: BAProblem, intr: Intrinsics, huber_delta: float, damping0: float):
+    """A solve's float64 window, the count of its base observations and its
+    first carry: (win, n_base, carry).  The carry shares the window's
+    tensors."""
+    prob = prob._replace(cam_T=prob.cam_T.double(), lm_pos=prob.lm_pos.double(),
+                         obs_px=prob.obs_px.double())
+    lam_min = damping0 if DAMPING_FLOOR is None else DAMPING_FLOOR
+    win = _window(prob, intr, huber_delta, lam_min)
+    n_base = torch.clamp(win.base_valid.sum(), min=1).to(torch.float32)
+    lam = torch.full((), damping0, dtype=prob.cam_T.dtype, device=prob.cam_T.device)
+    return win, n_base, _Carry(prob.cam_T, prob.lm_pos, lam, win.base_valid)
+
+
+def _step_in_place(win: _Window, carry: _Carry) -> torch.Tensor:
+    """One LM step written into ``carry``; returns its ``done`` flag on the
+    device."""
+    cam_T, lm_pos, lam, done = _lm_step(win, carry.cam_T, carry.lm_pos, carry.inlier, carry.lam)
+    carry.cam_T.copy_(cam_T)
+    carry.lm_pos.copy_(lm_pos)
+    carry.lam.copy_(lam)
+    return done
+
+
+def _end_round_in_place(win: _Window, carry: _Carry, n_base, chi2_threshold: float
+                        ) -> torch.Tensor:
+    """A round's end written into ``carry``; returns its ratio test on the
+    device."""
+    inlier, stop = _classify(win, carry.cam_T, carry.lm_pos, n_base, chi2_threshold)
+    carry.inlier.copy_(inlier)
+    return stop
+
+
+def _early_exit(step: Callable[[], bool], end_round: Callable[[], bool], rounds: int,
+                iters: int) -> int:
+    """The rounds with the host reading each exit test: ``step()`` runs one
+    LM step and returns whether it converged, ``end_round()`` ends a round
+    and returns whether its ratio test passed.  A round ends at its first
+    converged step, the solve at the first round whose ratio test passes.
+    Returns the number of steps run."""
+    steps = 0
     for _ in range(rounds):
         for _ in range(iters):
-            cam_T, lm_pos, lam, done = _lm_step(win, cam_T, lm_pos, inlier, lam)
-            if bool(done):
+            steps += 1
+            if step():
                 break
-        inlier, stop = _classify(win, cam_T, lm_pos, n_base, chi2_threshold)
-        if bool(stop):
+        if end_round():
             break
-    return cam_T, lm_pos, inlier
+    return steps
 
 
 def _fixed_steps(win, cam_T, lm_pos, inlier, lam, n_base, rounds, iters, chi2_threshold):
@@ -302,6 +353,13 @@ def _fixed_steps(win, cam_T, lm_pos, inlier, lam, n_base, rounds, iters, chi2_th
     return cam_T, lm_pos, inlier
 
 
+def _finish(win: _Window, cam_T, lm_pos, inlier, out_dt: torch.dtype) -> BAResult:
+    """The solve's result from its last carry, in ``out_dt``."""
+    cam_T = torch.where(win.moved[:, None, None], se3.orthonormalize(cam_T), cam_T)
+    return BAResult(cam_T=cam_T.to(out_dt), lm_pos=lm_pos.to(out_dt), obs_inlier=inlier,
+                    chi2=_chi2(win, cam_T, lm_pos).to(out_dt))
+
+
 def solve_window_ba(
     prob: BAProblem,
     intr: Intrinsics,
@@ -309,7 +367,7 @@ def solve_window_ba(
     iters: int = 10,
     chi2_threshold: float = 5.991,
     huber_delta: float = 5.991,
-    damping0: float = 1e-3,
+    damping0: float = DAMPING0,
     host_exit: Optional[bool] = None,
 ) -> BAResult:
     """Windowed BA with the reference's outlier schedule: rounds of LM
@@ -324,17 +382,16 @@ def solve_window_ba(
     frozen on the device, which reads nothing back, so the solve can be
     captured in a CUDA graph; the result is the same bit for bit."""
     out_dt = prob.cam_T.dtype
-    prob = prob._replace(cam_T=prob.cam_T.double(), lm_pos=prob.lm_pos.double(),
-                         obs_px=prob.obs_px.double())
-    lam_min = damping0 if DAMPING_FLOOR is None else DAMPING_FLOOR
-    win = _window(prob, intr, huber_delta, lam_min)
+    win, n_base, carry = _start(prob, intr, huber_delta, damping0)
     if host_exit is None:
         host_exit = prob.cam_T.device.type == "cpu"
-    n_base = torch.clamp(win.base_valid.sum(), min=1).to(torch.float32)
-    lam = torch.full((), damping0, dtype=prob.cam_T.dtype, device=prob.cam_T.device)
-    drive = _early_exit if host_exit else _fixed_steps
-    cam_T, lm_pos, inlier = drive(win, prob.cam_T, prob.lm_pos, win.base_valid, lam, n_base,
-                                  rounds, iters, chi2_threshold)
-    cam_T = torch.where(win.moved[:, None, None], se3.orthonormalize(cam_T), cam_T)
-    return BAResult(cam_T=cam_T.to(out_dt), lm_pos=lm_pos.to(out_dt), obs_inlier=inlier,
-                    chi2=_chi2(win, cam_T, lm_pos).to(out_dt))
+    if host_exit:
+        carry = _Carry(*(t.clone() for t in carry))
+        _early_exit(lambda: bool(_step_in_place(win, carry)),
+                    lambda: bool(_end_round_in_place(win, carry, n_base, chi2_threshold)),
+                    rounds, iters)
+        cam_T, lm_pos, inlier = carry.cam_T, carry.lm_pos, carry.inlier
+    else:
+        cam_T, lm_pos, inlier = _fixed_steps(win, carry.cam_T, carry.lm_pos, carry.inlier,
+                                             carry.lam, n_base, rounds, iters, chi2_threshold)
+    return _finish(win, cam_T, lm_pos, inlier, out_dt)

@@ -20,10 +20,11 @@ applied loop closing.  A step is
 3. **keyframe service** for the selected sequences (at most ``kf_sub``,
    most overdue first, BAD status outranking the motion clock; the rest
    stay eligible and win a later step): ``make_keyframe_step``, the
-   windowed BA (one replayed CUDA graph, ``core/graphs.py`` ``BAGraph``),
-   the descriptor of the left image and the reduced-pyramid
-   ORB rows, each written into the batched state in place, then
-   :func:`batched_loop_detect` over the whole batch.  The serviced
+   windowed BA (``core/graphs.py`` ``SteppedBA``: one replayed graph a LM
+   step, the host reading each exit test, so it stops at the exit rule; the
+   service waits for the BA's result anyway), the descriptor of the left
+   image and the reduced-pyramid ORB rows, each written into the batched
+   state in place, then :func:`batched_loop_detect` over the whole batch.  The serviced
    sequences are looped over from the host, as the keyframe branch of
    ``StereoSlam`` is;
 4. **retire**, ``readback_lag`` steps later: liveness, and each detected
@@ -69,14 +70,16 @@ entry a step for every key, 0 where the step had none of it: host seconds
 of ``track`` (copy-in, the replay, the outcome read), ``keyframes`` (the
 keyframe service), ``retire``, and inside the service ``kf_branch`` (each
 served sequence's right pyramid and ``make_keyframe_step``) and
-``ba_launch`` (each ``BAGraph`` call: copy-in, replay, copies out);
-and ``host_wait``, the seconds blocked in the step's host reads.  A graph
+``ba_launch`` (each BA call: copy-in, the replays and their exit reads,
+copies out); and ``host_wait``, the seconds blocked in the step's host
+reads.  ``ba_steps`` holds the LM steps of each served BA.  A graph
 replay's device time is not recorded here: a trace of the card holds it.
 ``reads`` (a ``HostReads``) counts every blocking host sync by site
 (``outcome``; ``kf.n_kf``, ``stereo.*`` and ``insert.*`` inside
-``make_keyframe_step``; ``service.kf_id``; ``detect`` at a retire), and
-``step_reads`` holds each step's count; ``outcome`` and ``detect`` wait on
-an event (``EVENT_READ_SITES``), the others on a synchronizing call.  Every
+``make_keyframe_step``; ``ba.exit``, one a BA's LM step and one a round;
+``service.kf_id``; ``detect`` at a retire), and ``step_reads`` holds each
+step's count; ``outcome``, ``ba.exit`` and ``detect`` wait on an event
+(``EVENT_READ_SITES``), the others on a synchronizing call.  Every
 stage is a ``slam.*`` span on the profiler's timeline while it records.
 
 **Undistortion.**  As in JAX (``multiseq.py:218-220``), the batched mode reads
@@ -97,7 +100,7 @@ import torch
 
 from stereoslam_tpu_torch.config import SlamConfig
 from stereoslam_tpu_torch.core import frontend as frontend_mod
-from stereoslam_tpu_torch.core.graphs import BAGraph, TrackGraph
+from stereoslam_tpu_torch.core.graphs import SteppedBA, TrackGraph
 from stereoslam_tpu_torch.core.loopclosing import LoopCloser, post_correction_unlink
 from stereoslam_tpu_torch.core.state import (LOST, TRACKING_BAD, TRACKING_GOOD, LoopState,
                                              TrackState, init_frontend_state, init_map_state)
@@ -117,7 +120,7 @@ OUTCOME_COLUMNS = ("num_inliers", "num_tracked", "status", "make_kf", "serviced"
 # The per-step keys of ``MultiSeqVO.stage_s``: host seconds.
 STEP_KEYS = ("track", "keyframes", "retire", "kf_branch", "ba_launch", "host_wait")
 # Read sites that wait on an event (not a synchronizing call).
-EVENT_READ_SITES = ("outcome", "detect")
+EVENT_READ_SITES = ("outcome", "detect", "ba.exit")
 
 
 def _take(tree, b: int):
@@ -431,17 +434,19 @@ class MultiSeqVO:
         self.graph = TrackGraph(cfg, self.intr, dev, frame_fn=self._frame)
         # The step in progress: seconds by key (see the module docstring).
         self._rec = defaultdict(float)
+        # Blocking host syncs by site, and each step's count.
+        self.reads = HostReads()
         # The windowed BA of a serviced keyframe, one sequence's map at a
-        # time: one replayed CUDA graph (core/graphs.py).
-        self._ba = BAGraph(self._run_cfg, self.intr, dev, record=self._rec)
+        # time, stepped until its exit rule passes (core/graphs.py); the LM
+        # steps of each served BA.
+        self._ba = SteppedBA(self._run_cfg, self.intr, dev, record=self._rec, reads=self.reads)
+        self.ba_steps: List[int] = self._ba.steps
         if dev.type == "cuda":
             self._host_outcome = torch.empty((self.batch, len(OUTCOME_COLUMNS)),
                                              dtype=torch.float32, pin_memory=True)
             self._outcome_landed = torch.cuda.Event()
         else:
             self._host_outcome = None
-        # Blocking host syncs by site, and each step's count.
-        self.reads = HostReads()
         self.step_reads: List[int] = []
         self.steps = 0
         self.keyframes_serviced = 0

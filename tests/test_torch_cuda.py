@@ -27,8 +27,10 @@ equals the ungated call bit for bit.  A batched ``lk_pyramid`` launch gives
 each sequence the bits of its own single launch, gated or not, and a replay
 of the batched multi-sequence step's graph equals the eager batched step
 bit for bit.  The float64 SVD equals ``torch.linalg.svd`` bit for bit; a
-replay of the windowed BA's graph equals the eager BA bit for bit and reads
-nothing back; the asynchronous BA replays on a side stream.
+replay of the windowed BA's fixed-step graph equals the eager BA bit for bit
+and reads nothing back; the stepped BA equals the eager early exit bit for
+bit and reads only its exit tests; the asynchronous BA replays on a side
+stream.
 """
 
 import numpy as np
@@ -258,6 +260,47 @@ def test_ba_replay_equals_eager_without_a_host_read(dev):
     for f in pbackend.BA_OUTPUTS:
         assert torch.equal(getattr(fixed, f), getattr(early, f)), f
         assert torch.equal(getattr(replay, f), getattr(fixed, f)), f
+
+
+def test_stepped_ba_equals_the_early_exit_reading_only_its_exit_tests(dev, monkeypatch):
+    """The stepped BA (the inline BA's and the fleet's) on the final map:
+    every output field bit for bit as the eager early exit, the same LM
+    steps, fewer than ``rounds x iters``, and under sync-debug "error" no
+    sync but its counted ``ba.exit`` reads (event waits, which the mode
+    does not report): one a step and one a round."""
+    from stereoslam_tpu_torch.core import backend as pbackend
+    from stereoslam_tpu_torch.core.graphs import SteppedBA
+    from stereoslam_tpu_torch.ops import schur as pschur
+    from stereoslam_tpu_torch.utils.prof import HostReads
+
+    seq, slam = _vo_slam(dev)
+    assert isinstance(slam._ba, SteppedBA)
+    for t in range(len(seq.left)):
+        assert slam.process_frame(seq.left[t], seq.right[t], seq.timestamps[t])
+    assert slam._ba.steps  # the run's keyframes ran it
+    m, intr, cfg = slam.map, slam.intr_left, slam.cfg
+    steps = []
+    step = pschur._lm_step
+    monkeypatch.setattr(pschur, "_lm_step", lambda *a: (steps.append(1), step(*a))[1])
+    early = pbackend.optimize_active_map(m, intr, cfg, host_exit=True)
+    monkeypatch.setattr(pschur, "_lm_step", step)
+    reads = HostReads()
+    g = SteppedBA(cfg, intr, dev, reads=reads)
+    g(m)  # the captures
+    torch.cuda.synchronize()
+    n0 = reads.n
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay = g(m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for f in pbackend.BA_OUTPUTS:
+        assert torch.equal(getattr(replay, f), getattr(early, f)), f
+    b = cfg.backend
+    assert g.steps == [len(steps)] * 2 and len(steps) < b.ba_rounds * b.ba_iters
+    assert len(steps) < reads.n - n0 <= 2 * len(steps)
+    assert set(reads.counts) == {"ba.exit"}
 
 
 def test_async_ba_replays_on_a_side_stream(dev):

@@ -147,6 +147,17 @@ def test_site_counts_add_up_to_the_steps_reads(run):
     assert abs(sum(vo.stage_s["host_wait"]) - vo.reads.s) < 1e-6
 
 
+def test_each_served_ba_records_its_lm_steps(run):
+    """One ``ba_steps`` entry a served BA; its exit reads are one a step and
+    one a round."""
+    vo, served, _ = run
+    s = vo.ba_steps
+    assert len(s) == sum(served) == vo.keyframes_serviced
+    b = vo._run_cfg.backend
+    assert all(1 <= n <= b.ba_rounds * b.ba_iters for n in s)
+    assert sum(s) + len(s) <= vo.reads.counts["ba.exit"] <= 2 * sum(s)
+
+
 def test_spans_reach_the_profilers_timeline(seqs, run):
     """The fleet again, its first serving step under the profiler."""
     from torch.profiler import ProfilerActivity, profile
